@@ -1,0 +1,50 @@
+"""KubePACS control plane on PyTorch/CUDA: the decision plane of
+``repro.core`` with every cover DP on the card's hand-written kernel."""
+
+from . import events_log
+from .market import (Offering, InterruptEvent, SpotMarketSimulator,
+                     generate_catalog, restrict, snapshot_with,
+                     pressure_interrupt_probability,
+                     pressure_interrupt_probability_batch)
+from .efficiency import (Request, CandidateItem, NodePool, pods_per_instance,
+                         e_perf_cost, e_over_pods, e_total, e_total_batch,
+                         decision_metrics, pool_metric_arrays,
+                         reweight_items, score_counts_batch,
+                         score_counts_many)
+from .scaling import scaled_benchmark_score, build_base_price_index, matches_intent
+from .backend import (DEFAULT_COARSENING, CoarseningConfig, NumpyBackend,
+                      SolverBackend, TorchBackend, get_backend, make_backend,
+                      set_backend)
+from .ilp import (solve_ilp, solve_ilp_batch, solve_ilp_many, solve_ilp_pulp,
+                  solve_ilp_reference, objective_coefficients,
+                  CompiledMarket, compile_market, reweight_market)
+from .gss import (golden_section_search, bracketed_gss, bracketed_gss_many,
+                  expected_iterations, GssTrace, PHI)
+from .baselines import kubepacs_greedy, spotverse, spotkube, karpenter_like
+from .provisioner import (DecisionMemo, KubePACSProvisioner, PendingDecision,
+                          ProvisioningDecision, SolveBatch,
+                          UnavailableOfferingsCache, preprocess, merge_pools)
+from .convert import catalog_from_reference, items_from_reference
+
+__all__ = [
+    "Offering", "InterruptEvent", "SpotMarketSimulator", "generate_catalog",
+    "restrict", "Request", "CandidateItem", "NodePool", "pods_per_instance",
+    "e_perf_cost", "e_over_pods", "e_total", "e_total_batch",
+    "pool_metric_arrays", "score_counts_batch", "scaled_benchmark_score",
+    "build_base_price_index", "matches_intent", "solve_ilp",
+    "solve_ilp_batch", "solve_ilp_pulp", "solve_ilp_reference",
+    "objective_coefficients", "CompiledMarket", "compile_market",
+    "golden_section_search", "bracketed_gss", "expected_iterations",
+    "GssTrace", "PHI", "kubepacs_greedy", "spotverse", "spotkube",
+    "karpenter_like", "KubePACSProvisioner", "ProvisioningDecision",
+    "UnavailableOfferingsCache", "preprocess", "merge_pools",
+    "snapshot_with", "pressure_interrupt_probability",
+    "pressure_interrupt_probability_batch", "decision_metrics",
+    "reweight_items", "reweight_market", "DecisionMemo",
+    "solve_ilp_many", "bracketed_gss_many", "score_counts_many",
+    "SolveBatch", "PendingDecision",
+    "SolverBackend", "NumpyBackend", "TorchBackend", "get_backend",
+    "set_backend", "make_backend",
+    "CoarseningConfig", "DEFAULT_COARSENING", "events_log",
+    "catalog_from_reference", "items_from_reference",
+]

@@ -1,0 +1,283 @@
+"""Request/candidate data types and the paper's efficiency metrics (Eq. 1–3).
+
+Implements, with the symbol names used throughout DESIGN.md and Table 1:
+
+* **Eq. 1** — :func:`pods_per_instance`:
+  ``Pod_i = min(⌊CPU_i/Req_cpu⌋, ⌊Mem_i/Req_mem⌋)``, the per-instance pod
+  capacity that converts a node-selection problem into pod coverage.
+* **Eq. 2 (left), E_PerfCost** — :func:`e_perf_cost`: cumulative
+  performance-per-dollar of the selected pool,
+  ``Σ_i Perf_i·x_i / Σ_i SP_i·x_i`` with ``Perf_i = BS_i·Pod_i``
+  (aggregate/aggregate — see the interpretation note on the function and
+  DESIGN.md §7 for why the literal per-node-ratio reading is rejected).
+* **Eq. 2 (right), E_OverPods** — :func:`e_over_pods`:
+  ``Req_pod / Σ_i Pod_i·x_i``, the over-provisioning penalty that
+  normalizes performance-per-dollar by how much capacity exceeds demand.
+* **Eq. 3, E_Total** — :func:`e_total`: ``E_PerfCost × E_OverPods``,
+  0 for pools that underfill the demand — the objective GSS maximizes
+  over α (Alg. 1) and the metric every figure/table reports.
+
+The E_perf/E_cost *normalization* of the ILP objective itself
+(``-α·Perf_i/Perf_min + (1−α)·SP_i/SP_min``, Eq. 4–5) lives in
+:func:`repro_torch.core.ilp.objective_coefficients`; this module only scores
+completed pools.  Batch variants (:func:`e_total_batch`,
+:func:`score_counts_batch`) score (n_pools × n_items) count matrices in
+one vectorized pass for the batched GSS prescan (DESIGN.md §8) and the
+scenario engine's sweeps (DESIGN.md §9).
+
+This module is the *authoritative* scorer: the fused device plane
+(DESIGN.md §13) re-implements Eq. 3 on device only to steer its
+speculative bracket control — every score a decision, trace, or metric
+dict actually reports is recomputed here on host floats, so a device
+scoring discrepancy can cost a fallback solve but never change a
+selection.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from .market import Offering
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """The user's workload requirement ``Req`` (Table 1) + workload intent."""
+
+    pods: int                    # Req_pod
+    cpu_per_pod: float           # Req_cpu  (vCPUs)
+    mem_per_pod: float           # Req_mem  (GiB)
+    workload: frozenset = frozenset()   # subset of {"network", "disk"} (§3.3)
+
+    def __post_init__(self):
+        object.__setattr__(self, "workload", frozenset(self.workload))
+
+
+@dataclasses.dataclass(frozen=True)
+class CandidateItem:
+    """One preprocessed offering: the ILP's per-type constants."""
+
+    offering: Offering
+    pods: int                    # Pod_i  (Eq. 1)
+    bs: float                    # BS_i, possibly workload-scaled (Eq. 8)
+    spot_price: float            # SP_i
+    t3: int                      # T3_i  (upper bound on x_i)
+
+    @property
+    def perf(self) -> float:     # Perf_i = BS_i * Pod_i
+        return self.bs * self.pods
+
+
+@dataclasses.dataclass
+class NodePool:
+    """A provisioning decision: counts per candidate (only x_i > 0 kept)."""
+
+    items: List[CandidateItem]
+    counts: List[int]
+    alpha: Optional[float] = None        # the α that produced this pool
+    request: Optional[Request] = None
+
+    def as_dict(self) -> Dict[str, int]:
+        return {it.offering.offering_id: c for it, c in zip(self.items, self.counts)}
+
+    @property
+    def total_nodes(self) -> int:
+        return int(sum(self.counts))
+
+    @property
+    def total_pods(self) -> int:
+        return int(sum(it.pods * c for it, c in zip(self.items, self.counts)))
+
+    @property
+    def hourly_cost(self) -> float:
+        return float(sum(it.spot_price * c for it, c in zip(self.items, self.counts)))
+
+    @property
+    def perf_rate(self) -> float:
+        """Σ_i Perf_i·x_i — aggregate benchmark throughput per hour, the
+        numerator of Eq. 2 and the rate the scenario engine integrates into
+        delivered perf-hours (DESIGN.md §10 backtest accounting)."""
+        return float(sum(it.perf * c for it, c in zip(self.items, self.counts)))
+
+    def nonzero(self) -> "NodePool":
+        keep = [(it, c) for it, c in zip(self.items, self.counts) if c > 0]
+        return NodePool(items=[it for it, _ in keep], counts=[c for _, c in keep],
+                        alpha=self.alpha, request=self.request)
+
+
+def pods_per_instance(offering: Offering, req: Request) -> int:
+    """Eq. 1: Pod_i = min(floor(CPU_i/Req_cpu), floor(Mem_i/Req_mem))."""
+    if req.cpu_per_pod <= 0 or req.mem_per_pod <= 0:
+        raise ValueError("per-pod resources must be positive")
+    return int(min(offering.vcpus // req.cpu_per_pod,
+                   offering.mem_gib // req.mem_per_pod))
+
+
+def e_perf_cost(pool: NodePool) -> float:
+    """Eq. 2 left: cumulative performance-per-dollar of the selected pool,
+    implemented as  Σ_i Perf_i·x_i  /  Σ_i SP_i·x_i .
+
+    Interpretation note (recorded in DESIGN.md §7).  Read literally, Eq. 2
+    sums per-node ratios BS_i·x_i/SP_i, which (a) grows linearly in node
+    count so splitting capacity across ever-smaller nodes dominates — the
+    SpotVerse-Node policy would be provably optimal, contradicting Fig. 5a —
+    and (b) cannot reproduce Table 2's collapse to ~1e-4 under α=1
+    over-provisioning.  The aggregate-performance-per-aggregate-dollar
+    reading reproduces both, and matches the text ("cumulative
+    performance-per-dollar of selected instances").  Perf_i = BS_i·Pod_i is
+    the instance-level contribution (Table 1), consistent with Eq. 5.
+    """
+    perf = sum(it.perf * c for it, c in zip(pool.items, pool.counts) if c > 0)
+    cost = sum(it.spot_price * c for it, c in zip(pool.items, pool.counts) if c > 0)
+    if cost <= 0:
+        return 0.0
+    return float(perf) / float(cost)
+
+
+def e_over_pods(pool: NodePool, req_pods: int) -> float:
+    """Eq. 2 right: Req_pod / Σ_i Pod_i·x_i  (over-provisioning penalty)."""
+    allocated = pool.total_pods
+    if allocated <= 0:
+        return 0.0
+    return float(req_pods) / float(allocated)
+
+
+def e_total(pool: NodePool, req_pods: int) -> float:
+    """Eq. 3: E_Total = E_PerfCost × E_OverPods (0 for infeasible pools)."""
+    if pool.total_pods < req_pods:
+        return 0.0   # unmet demand: not a valid provisioning decision
+    return e_perf_cost(pool) * e_over_pods(pool, req_pods)
+
+
+def decision_metrics(pool: NodePool, req_pods: int) -> Dict[str, float]:
+    """The canonical metric dict attached to every ProvisioningDecision —
+    one schema across the KubePACS provisioner and every scenario-engine
+    policy (trace consumers index these keys unconditionally).  An empty
+    (infeasible) pool scores 0 everywhere rather than dropping keys."""
+    return {
+        "e_total": e_total(pool, req_pods),
+        "e_perf_cost": e_perf_cost(pool),
+        "e_over_pods": e_over_pods(pool, req_pods),
+        "hourly_cost": pool.hourly_cost,
+        "nodes": float(pool.total_nodes),
+        "pods": float(pool.total_pods),
+    }
+
+
+def pool_capacity_rate(pool: NodePool,
+                       rate_per_pod: Dict[str, float]) -> float:
+    """Σ_i rate(o_i)·Pod_i·x_i — a pool's aggregate rate under a per-pod
+    rate table (e.g. QPS/pod from the serving perf model, DESIGN.md §15).
+    The serving analogue of :attr:`NodePool.perf_rate`: offerings missing
+    from the table contribute nothing rather than raising, so a rate table
+    built from one market snapshot stays usable on later pools."""
+    return float(sum(rate_per_pod.get(it.offering.offering_id, 0.0)
+                     * it.pods * c
+                     for it, c in zip(pool.items, pool.counts)))
+
+
+def reweight_items(items: Sequence[CandidateItem], perf: np.ndarray,
+                   price: np.ndarray) -> List[CandidateItem]:
+    """Array-adjustment entry point: the same candidates with substituted
+    (Perf_i, SP_i) vectors.
+
+    The risk subsystem (``repro.risk.objective``) optimizes a *risk-adjusted*
+    efficiency by handing GSS + the ILP engine candidates whose performance
+    is discounted by expected uptime and whose price carries expected
+    re-provisioning cost — the solvers are reused verbatim because only
+    these two vectors enter the objective.  ``Pod_i``/``T3_i`` (the
+    constraint structure) are untouched, so a :class:`CompiledMarket` can be
+    reweighted without re-splitting bundles (``repro_torch.core.ilp.reweight_market``).
+    Since ``Perf_i = BS_i·Pod_i``, the adjusted BS is ``perf_i / Pod_i``.
+    """
+    if len(perf) != len(items) or len(price) != len(items):
+        raise ValueError("perf/price vectors must match the candidate count")
+    return [dataclasses.replace(it, bs=float(p) / it.pods, spot_price=float(sp))
+            for it, p, sp in zip(items, perf, price)]
+
+
+def pool_metric_arrays(items: Sequence[CandidateItem],
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(Perf_i, SP_i, Pod_i) as float64 vectors for batch scoring."""
+    perf = np.array([it.perf for it in items], dtype=np.float64)
+    price = np.array([it.spot_price for it in items], dtype=np.float64)
+    pods = np.array([it.pods for it in items], dtype=np.float64)
+    return perf, price, pods
+
+
+def e_total_batch(perf: np.ndarray, price: np.ndarray, pods: np.ndarray,
+                  counts: np.ndarray, req_pods: int) -> np.ndarray:
+    """Eq. 3 over a batch of count-vectors: counts is (n_pools, n_items).
+
+    Vectorized equivalent of scoring each row with :func:`e_total`; rows
+    that underfill the demand (or cost nothing) score 0, matching the
+    scalar path.  Used by the batched GSS prescan and the benchmarks.
+
+    Backend note (DESIGN.md §12): inputs are coerced with ``np.asarray``
+    so accelerator-backend outputs score without
+    copy ceremony, but the reductions themselves deliberately stay on the
+    host BLAS path — scores feed GSS bracket *comparisons*, and the
+    batched search promises bit-identical decisions to the sequential
+    one, which pins the summation shapes (see :func:`score_counts_many`).
+    """
+    perf = np.asarray(perf, dtype=np.float64)
+    price = np.asarray(price, dtype=np.float64)
+    pods = np.asarray(pods, dtype=np.float64)
+    counts = np.asarray(counts, dtype=np.float64)
+    perf_sum = counts @ perf
+    cost_sum = counts @ price
+    pods_sum = counts @ pods
+    with np.errstate(divide="ignore", invalid="ignore"):
+        score = (perf_sum / cost_sum) * (req_pods / pods_sum)
+    score[(pods_sum < req_pods) | (cost_sum <= 0) | (pods_sum <= 0)] = 0.0
+    return score
+
+
+def score_counts_batch(items: Sequence[CandidateItem],
+                       counts_list: Sequence[Optional[Sequence[int]]],
+                       req_pods: int, none_score: float = 0.0,
+                       arrays: Optional[tuple] = None) -> List[float]:
+    """Score per-α solver outputs (``None`` = infeasible) in one batch.
+
+    The canonical consumer of :func:`solve_ilp_batch` results: feasible
+    rows are scored with one :func:`e_total_batch` call and reassembled in
+    order; infeasible rows get ``none_score``.  ``arrays`` accepts a
+    precomputed (perf, price, pods) triple (e.g. from a CompiledMarket) to
+    skip the per-item rebuild.
+    """
+    feasible = [c for c in counts_list if c is not None]
+    if not feasible:
+        return [none_score] * len(counts_list)
+    perf, price, pods = (arrays if arrays is not None
+                         else pool_metric_arrays(items))
+    scores = e_total_batch(perf, price, pods, np.array(feasible), req_pods)
+    out: List[float] = []
+    fi = 0
+    for c in counts_list:
+        if c is None:
+            out.append(none_score)
+        else:
+            out.append(float(scores[fi]))
+            fi += 1
+    return out
+
+
+def score_counts_many(items: Sequence[CandidateItem],
+                      counts_lists: Sequence[Sequence[Optional[Sequence[int]]]],
+                      req_pods_list: Sequence[int],
+                      none_score: float = 0.0,
+                      arrays: Optional[tuple] = None) -> List[List[float]]:
+    """Score the stacked per-decision outputs of ``solve_ilp_many``.
+
+    Deliberately one :func:`score_counts_batch` call *per decision* (not
+    one flattened matmul): BLAS reduction order can depend on operand
+    shape, and the cross-decision batched GSS (DESIGN.md §12) promises
+    every decision the bit-identical scores the sequential path computes
+    — so each decision is scored with exactly the sequential call shape.
+    """
+    return [score_counts_batch(items, counts_d, req, none_score=none_score,
+                               arrays=arrays)
+            for counts_d, req in zip(counts_lists, req_pods_list)]

@@ -1,0 +1,448 @@
+"""Golden Section Search over the cost/performance weight α (paper §3.2, Alg. 1).
+
+GSS maximizes E_Total(α) = E_PerfCost × E_OverPods of the ILP solution at α
+over α ∈ [0, 1], shrinking the bracket by φ = (√5−1)/2 ≈ 0.618 per step and
+reusing one interior evaluation per iteration (one ILP solve per iteration
+after the two initial solves; ≈ 5n+1 iterations for tolerance ε = 10⁻ⁿ,
+Eq. 6–7).  The best pool over *all* evaluated α is returned (Alg. 1's S*),
+which also guards against mild non-unimodality of the empirical E_Total(α).
+
+Engine wiring (DESIGN.md §8 + §12): with the default solver,
+``bracketed_gss`` is the one-decision case of :func:`bracketed_gss_many`,
+the *cross-decision batched* search: D decisions (each with its own
+demand and §4.1 exclusion mask) advance their prescans and golden-section
+brackets in lockstep, and every round's pending α probes across all
+decisions go to :func:`~repro_torch.core.ilp.solve_ilp_many` as one stacked
+engine invocation (one backend dispatch).  Each decision's (α, E_Total)
+evaluation sequence — and therefore its selected pool and trace — is
+exactly the sequential algorithm's; batching changes execution, never
+content.  A custom ``solver`` callable falls back to the seed per-α path
+unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .backend import CoarseningConfig, SolverBackend
+from .efficiency import (CandidateItem, NodePool, e_total,
+                         score_counts_batch, score_counts_many)
+from .ilp import (CompiledMarket, compile_market, solve_ilp, solve_ilp_many)
+
+PHI = (math.sqrt(5.0) - 1.0) / 2.0     # ≈ 0.618
+
+
+@dataclasses.dataclass
+class GssTrace:
+    """Every (α, E_Total) the search evaluated — Fig. 6's black lines."""
+
+    alphas: List[float] = dataclasses.field(default_factory=list)
+    e_totals: List[float] = dataclasses.field(default_factory=list)
+    ilp_solves: int = 0
+    wall_seconds: float = 0.0
+
+
+@functools.lru_cache(maxsize=256)
+def expected_iterations(tolerance: float, a: float = 0.0, b: float = 1.0) -> int:
+    """Eq. 6: k−1 ≥ ⌈log(ε/(b−a)) / log φ⌉  (≈ 4.784·n for ε=10⁻ⁿ).
+
+    Cached: the (tolerance, bracket) universe of a run is tiny and callers
+    historically re-derived it per provisioning cycle.
+    """
+    return int(math.ceil(math.log(tolerance / (b - a)) / math.log(PHI))) + 1
+
+
+def _make_evaluator(items: Sequence[CandidateItem], req_pods: int,
+                    solver: Callable, market: Optional[CompiledMarket],
+                    exclude: Optional[np.ndarray], trace: GssTrace,
+                    cache: dict,
+                    backend: Optional[SolverBackend] = None,
+                    coarsening: Optional[CoarseningConfig] = None,
+                    ) -> Callable:
+    """One (α → (pool, E_Total)) evaluator shared by both searches.
+
+    The engine path solves against the compiled market with the objective
+    row rebuilt from normalised vectors cached *once* per (market, mask) —
+    ``market.norms(exclude)`` — instead of re-deriving the masked
+    normalisation on every α probe (bit-identical by construction).  A
+    custom ``solver`` keeps the seed calling convention for tests and
+    alternative backends.
+    """
+    use_engine = solver is solve_ilp
+    if not use_engine and exclude is not None:
+        raise ValueError("exclude masks require the default solve_ilp solver "
+                         "(custom solvers have no exclusion channel)")
+    if use_engine and market is None:
+        market = compile_market(items)
+    if use_engine:
+        perf_norm, price_norm = market.norms(exclude)
+
+    def evaluate(alpha: float) -> Tuple[Optional[NodePool], float]:
+        key = round(alpha, 12)
+        if key in cache:
+            return cache[key]
+        if use_engine:
+            coef = -alpha * perf_norm + (1.0 - alpha) * price_norm
+            counts = solve_ilp(items, req_pods, alpha, market=market,
+                               exclude=exclude, backend=backend, coef=coef,
+                               coarsening=coarsening)
+        else:
+            counts = solver(items, req_pods, alpha)
+        trace.ilp_solves += 1
+        if counts is None:
+            pool, score = None, float("-inf")
+        else:
+            pool = NodePool(items=list(items), counts=counts, alpha=alpha)
+            score = e_total(pool, req_pods)
+        trace.alphas.append(alpha)
+        trace.e_totals.append(score if score != float("-inf") else 0.0)
+        cache[key] = (pool, score)
+        return pool, score
+
+    return evaluate
+
+
+def golden_section_search(
+    items: Sequence[CandidateItem],
+    req_pods: int,
+    tolerance: float = 0.01,
+    alpha_lo: float = 0.0,
+    alpha_hi: float = 1.0,
+    solver: Callable[[Sequence[CandidateItem], int, float], Optional[List[int]]] = solve_ilp,
+    market: Optional[CompiledMarket] = None,
+    exclude: Optional[np.ndarray] = None,
+    timer: Callable[[], float] = time.perf_counter,
+    backend: Optional[SolverBackend] = None,
+    coarsening: Optional[CoarseningConfig] = None,
+) -> Tuple[Optional[NodePool], GssTrace]:
+    """Algorithm 1 (lines 7–27).  Returns (best pool S*, evaluation trace).
+
+    ``timer`` stamps ``GssTrace.wall_seconds``; inject a fake for tests that
+    assert full decision equality (wall time is diagnostic, never decision
+    content)."""
+    trace = GssTrace()
+    t0 = timer()
+    cache: dict[float, Tuple[Optional[NodePool], float]] = {}
+    evaluate = _make_evaluator(items, req_pods, solver, market, exclude,
+                               trace, cache, backend, coarsening)
+
+    a, b = alpha_lo, alpha_hi
+    x1 = b - PHI * (b - a)
+    x2 = a + PHI * (b - a)
+    pool1, f1 = evaluate(x1)
+    pool2, f2 = evaluate(x2)
+    best_pool, best_f = (pool1, f1) if f1 >= f2 else (pool2, f2)
+
+    while (b - a) > tolerance:
+        if f1 >= f2:
+            b = x2
+            x2, f2, pool2 = x1, f1, pool1
+            x1 = b - PHI * (b - a)
+            pool1, f1 = evaluate(x1)
+            if f1 > best_f:
+                best_pool, best_f = pool1, f1
+        else:
+            a = x1
+            x1, f1, pool1 = x2, f2, pool2
+            x2 = a + PHI * (b - a)
+            pool2, f2 = evaluate(x2)
+            if f2 > best_f:
+                best_pool, best_f = pool2, f2
+
+    trace.wall_seconds = timer() - t0
+    if best_pool is not None:
+        best_pool = best_pool.nonzero()
+    return best_pool, trace
+
+
+def bracketed_gss(
+    items: Sequence[CandidateItem],
+    req_pods: int,
+    tolerance: float = 0.01,
+    prescan: int = 9,
+    solver: Callable[[Sequence[CandidateItem], int, float], Optional[List[int]]] = solve_ilp,
+    market: Optional[CompiledMarket] = None,
+    exclude: Optional[np.ndarray] = None,
+    timer: Callable[[], float] = time.perf_counter,
+    backend: Optional[SolverBackend] = None,
+    coarsening: Optional[CoarseningConfig] = None,
+) -> Tuple[Optional[NodePool], GssTrace]:
+    """Guarded GSS (beyond-paper robustness hardening, DESIGN.md §7).
+
+    The paper's Fig. 6 landscapes are empirically unimodal; a synthetic or
+    adversarial market can produce secondary bumps that trap pure GSS in the
+    wrong bracket.  We first scan ``prescan`` equispaced α (one batched
+    engine invocation with the default solver), then run Algorithm 1 inside
+    the grid cell bracketing the best scan point.  Degrades gracefully to
+    pure GSS quality on unimodal landscapes; strictly better on bumpy ones.
+
+    With the default solver this *is* :func:`bracketed_gss_many` at
+    ``D = 1`` — one implementation, so the batched tick phase of the fleet
+    engine and the sequential path can never diverge (DESIGN.md §12).
+    """
+    if solver is solve_ilp:
+        return bracketed_gss_many(
+            items, [req_pods], tolerance=tolerance, prescan=prescan,
+            market=market, excludes=[exclude], timer=timer,
+            backend=backend, coarsening=coarsening)[0]
+
+    # custom-solver fallback: the seed per-α path, unchanged
+    if exclude is not None:
+        raise ValueError("exclude masks require the default solve_ilp "
+                         "solver (custom solvers have no exclusion "
+                         "channel)")
+    grid = [i / (prescan - 1) for i in range(prescan)]
+    scan_trace = GssTrace()
+    t0 = timer()
+    scores, pools = [], []
+    for alpha in grid:
+        counts = solver(items, req_pods, alpha)
+        scan_trace.ilp_solves += 1
+        if counts is None:
+            scores.append(float("-inf"))
+            pools.append(None)
+        else:
+            pool = NodePool(items=list(items), counts=counts, alpha=alpha)
+            scores.append(e_total(pool, req_pods))
+            pools.append(pool)
+
+    best_pool, best_f, best_idx = None, float("-inf"), 0
+    for gi, (alpha, score, pool) in enumerate(zip(grid, scores, pools)):
+        if pool is not None:
+            pool.alpha = alpha
+        scan_trace.alphas.append(alpha)
+        scan_trace.e_totals.append(max(score, 0.0))
+        if score > best_f:
+            best_pool, best_f, best_idx = pool, score, gi
+
+    lo = grid[max(0, best_idx - 1)]
+    hi = grid[min(len(grid) - 1, best_idx + 1)]
+    pool, trace = golden_section_search(items, req_pods, tolerance=tolerance,
+                                        alpha_lo=lo, alpha_hi=hi,
+                                        solver=solver, market=market,
+                                        exclude=exclude, timer=timer)
+    # merge traces and keep the global argmax
+    trace.alphas = scan_trace.alphas + trace.alphas
+    trace.e_totals = scan_trace.e_totals + trace.e_totals
+    trace.ilp_solves += scan_trace.ilp_solves
+    trace.wall_seconds = timer() - t0
+    inner_f = e_total(pool, req_pods) if pool is not None else float("-inf")
+    if best_pool is not None and best_f > inner_f:
+        return best_pool.nonzero(), trace
+    return pool, trace
+
+
+class _GssState:
+    """One decision's sequential-GSS state, advanced in lockstep."""
+
+    __slots__ = ("req", "exclude", "idx", "t0", "scan_trace", "trace",
+                 "cache", "scan_pool", "scan_f", "a", "b", "x1", "x2",
+                 "f1", "f2", "pool1", "pool2", "best_pool", "best_f",
+                 "done")
+
+    def __init__(self, req: int, exclude: Optional[np.ndarray]):
+        self.req = req
+        self.exclude = exclude
+        self.scan_trace = GssTrace()
+        self.trace = GssTrace()
+        self.cache: dict = {}
+        self.scan_pool: Optional[NodePool] = None
+        self.scan_f = float("-inf")
+        self.best_pool: Optional[NodePool] = None
+        self.best_f = float("-inf")
+        self.done = False
+
+
+def bracketed_gss_many(
+    items: Sequence[CandidateItem],
+    req_pods_list: Sequence[int],
+    tolerance: float = 0.01,
+    prescan: int = 9,
+    market: Optional[CompiledMarket] = None,
+    excludes: Optional[Sequence[Optional[np.ndarray]]] = None,
+    timer: Callable[[], float] = time.perf_counter,
+    backend: Optional[SolverBackend] = None,
+    coarsening: Optional[CoarseningConfig] = None,
+) -> List[Tuple[Optional[NodePool], GssTrace]]:
+    """Cross-decision batched guarded GSS (DESIGN.md §12).
+
+    Runs D guarded searches — one per (demand, exclusion mask) — in
+    lockstep: the D prescans form one :func:`solve_ilp_many` invocation,
+    and every golden-section round batches the decisions' pending α probes
+    into the next one.  Per decision, the evaluation order, cache
+    behaviour, trace content, and returned pool are *exactly* those of the
+    sequential :func:`bracketed_gss`; only the dispatch granularity
+    changes.  Scoring deliberately runs per decision with the same array
+    shapes as the sequential path (``score_counts_batch`` over that
+    decision's grid, scalar ``e_total`` per golden probe) so every float
+    matches bit-for-bit.
+    """
+    n_dec = len(req_pods_list)
+    if excludes is None:
+        excludes = [None] * n_dec
+    if len(excludes) != n_dec:
+        raise ValueError("excludes must match len(req_pods_list)")
+    grid = [i / (prescan - 1) for i in range(prescan)]
+    if market is None:
+        market = compile_market(items)
+
+    states = [_GssState(req, ex) for req, ex in zip(req_pods_list, excludes)]
+    for i, st in enumerate(states):
+        st.idx = i
+        st.t0 = timer()
+
+    # -- fused device plane (DESIGN.md §13): backends that support it run
+    # the whole batch (prescan grid + speculative golden rounds) on device
+    # and hand back a replay record; the lockstep loop below then consumes
+    # recorded counts instead of dispatching per round.  Control flow,
+    # scoring, traces, and selections are the sequential path's either way.
+    record = None
+    if backend is not None and getattr(backend, "supports_fused_gss", False):
+        record = backend.fused_gss_record(items, market, list(req_pods_list),
+                                          list(excludes), grid, tolerance,
+                                          coarsening=coarsening)
+
+    # -- prescan: one stacked engine invocation over every (decision, α) --
+    if record is not None:
+        all_counts = record.prescan
+    else:
+        all_counts = solve_ilp_many(items, list(req_pods_list), grid,
+                                    market=market, excludes=list(excludes),
+                                    backend=backend, coarsening=coarsening)
+    all_scores = score_counts_many(items, all_counts, list(req_pods_list),
+                                   none_score=float("-inf"),
+                                   arrays=market.metric_arrays)
+    for st, counts_d, scores in zip(states, all_counts, all_scores):
+        st.scan_trace.ilp_solves += len(grid)
+        pools = [None if counts is None
+                 else NodePool(items=list(items), counts=counts)
+                 for counts in counts_d]
+        best_idx = 0
+        for gi, (alpha, score, pool) in enumerate(zip(grid, scores, pools)):
+            if pool is not None:
+                pool.alpha = alpha
+            st.scan_trace.alphas.append(alpha)
+            st.scan_trace.e_totals.append(max(score, 0.0))
+            if score > st.scan_f:
+                st.scan_pool, st.scan_f, best_idx = pool, score, gi
+        st.a = grid[max(0, best_idx - 1)]
+        st.b = grid[min(len(grid) - 1, best_idx + 1)]
+        st.x1 = st.b - PHI * (st.b - st.a)
+        st.x2 = st.a + PHI * (st.b - st.a)
+
+    if record is not None:
+        # speculative device golden rounds over the chosen brackets; the
+        # probe α sequence is re-derived exactly below, so every cache
+        # miss resolves from the record (host solve only on divergence)
+        record.run_golden([st.a for st in states], [st.b for st in states])
+
+    # -- lockstep golden-section refinement --------------------------------
+    def eval_round(requests: List[Tuple[_GssState, List[float]]]) -> None:
+        """Evaluate each state's pending α list with sequential-evaluate
+        semantics (cache first, one engine row per miss, per-state append
+        order), batching all misses into one solve_ilp_many call."""
+        miss_states: List[_GssState] = []
+        miss_reqs: List[int] = []
+        miss_alphas: List[List[float]] = []
+        miss_excludes: List[Optional[np.ndarray]] = []
+        for st, alist in requests:
+            pending: List[float] = []
+            seen = set()
+            for alpha in alist:
+                key = round(alpha, 12)
+                if key not in st.cache and key not in seen:
+                    seen.add(key)
+                    pending.append(alpha)
+            if pending:
+                miss_states.append(st)
+                miss_reqs.append(st.req)
+                miss_alphas.append(pending)
+                miss_excludes.append(st.exclude)
+        if not miss_states:
+            return
+        if record is not None:
+            solved = record.solve_many([st.idx for st in miss_states],
+                                       miss_alphas)
+        else:
+            solved = solve_ilp_many(items, miss_reqs, miss_alphas,
+                                    market=market, excludes=miss_excludes,
+                                    backend=backend, coarsening=coarsening)
+        for st, alphas_d, counts_d in zip(miss_states, miss_alphas, solved):
+            for alpha, counts in zip(alphas_d, counts_d):
+                st.trace.ilp_solves += 1
+                if counts is None:
+                    pool, score = None, float("-inf")
+                else:
+                    pool = NodePool(items=list(items), counts=counts,
+                                    alpha=alpha)
+                    score = e_total(pool, st.req)
+                st.trace.alphas.append(alpha)
+                st.trace.e_totals.append(
+                    score if score != float("-inf") else 0.0)
+                st.cache[round(alpha, 12)] = (pool, score)
+
+    eval_round([(st, [st.x1, st.x2]) for st in states])
+    for st in states:
+        st.pool1, st.f1 = st.cache[round(st.x1, 12)]
+        st.pool2, st.f2 = st.cache[round(st.x2, 12)]
+        if st.f1 >= st.f2:
+            st.best_pool, st.best_f = st.pool1, st.f1
+        else:
+            st.best_pool, st.best_f = st.pool2, st.f2
+
+    while True:
+        active = [st for st in states
+                  if not st.done and (st.b - st.a) > tolerance]
+        for st in states:
+            if not st.done and (st.b - st.a) <= tolerance:
+                st.done = True
+        if not active:
+            break
+        probes: List[Tuple[_GssState, List[float]]] = []
+        for st in active:
+            if st.f1 >= st.f2:
+                st.b = st.x2
+                st.x2, st.f2, st.pool2 = st.x1, st.f1, st.pool1
+                st.x1 = st.b - PHI * (st.b - st.a)
+                probes.append((st, [st.x1]))
+            else:
+                st.a = st.x1
+                st.x1, st.f1, st.pool1 = st.x2, st.f2, st.pool2
+                st.x2 = st.a + PHI * (st.b - st.a)
+                probes.append((st, [st.x2]))
+        eval_round(probes)
+        for st, alist in probes:
+            pool, f = st.cache[round(alist[0], 12)]
+            if alist[0] == st.x1:
+                st.pool1, st.f1 = pool, f
+                if f > st.best_f:
+                    st.best_pool, st.best_f = pool, f
+            else:
+                st.pool2, st.f2 = pool, f
+                if f > st.best_f:
+                    st.best_pool, st.best_f = pool, f
+
+    # -- per-decision finish: exactly the sequential epilogue --------------
+    out: List[Tuple[Optional[NodePool], GssTrace]] = []
+    for st in states:
+        inner_pool = st.best_pool
+        if inner_pool is not None:
+            inner_pool = inner_pool.nonzero()
+        trace = st.trace
+        trace.alphas = st.scan_trace.alphas + trace.alphas
+        trace.e_totals = st.scan_trace.e_totals + trace.e_totals
+        trace.ilp_solves += st.scan_trace.ilp_solves
+        trace.wall_seconds = timer() - st.t0
+        inner_f = (e_total(inner_pool, st.req)
+                   if inner_pool is not None else float("-inf"))
+        if st.scan_pool is not None and st.scan_f > inner_f:
+            out.append((st.scan_pool.nonzero(), trace))
+        else:
+            out.append((inner_pool, trace))
+    return out

@@ -1,0 +1,452 @@
+"""The full KubePACS pipeline (paper §3 + §4): preprocessing → ILP×GSS →
+node pool, plus the reactive spot-interruption handling loop of §4.1.
+
+`KubePACSProvisioner` is the controller-side object the data plane talks to:
+
+    decision = provisioner.provision(request, market.snapshot())
+    ...
+    events = market.interrupts_for_pool(decision.pool.as_dict())
+    replacement = provisioner.handle_interrupts(events, request, market.snapshot())
+
+Interrupted offerings land in the `UnavailableOfferingsCache` (TTL'd) and are
+excluded from the next optimization cycle, mirroring the Karpenter-fork
+implementation in the paper.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence, Set,
+                    Tuple)
+
+import numpy as np
+
+from .backend import CoarseningConfig, SolverBackend
+from .efficiency import (CandidateItem, NodePool, Request, decision_metrics,
+                         pods_per_instance)
+from .gss import (GssTrace, bracketed_gss, bracketed_gss_many,
+                  golden_section_search)
+from .ilp import CompiledMarket, compile_market
+from .market import InterruptEvent, Offering
+from .scaling import build_base_price_index, scaled_benchmark_score
+
+
+class UnavailableOfferingsCache:
+    """TTL cache of interrupted offerings excluded from re-optimization."""
+
+    def __init__(self, ttl_hours: float = 2.0):
+        self.ttl = ttl_hours
+        self._entries: Dict[str, float] = {}   # offering_id -> expiry time
+
+    def add(self, offering_id: str, now: float) -> None:
+        self._entries[offering_id] = now + self.ttl
+
+    def excluded(self, now: float) -> Set[str]:
+        self._entries = {k: v for k, v in self._entries.items() if v > now}
+        return set(self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+@dataclasses.dataclass
+class ProvisioningDecision:
+    pool: NodePool
+    trace: Optional[GssTrace]
+    alpha: Optional[float]
+    wall_seconds: float
+    excluded_offerings: Set[str]
+    metrics: Dict[str, float]
+    # diagnostic provenance (e.g. {"memo_hit": 1.0} when the pool came from
+    # the cross-replica DecisionMemo).  compare=False keeps the fleet ≡
+    # standalone decision-equality contract intact: a memoized decision
+    # equals the freshly-solved one it was cached from (DESIGN.md §11)
+    cache: Dict[str, float] = dataclasses.field(default_factory=dict,
+                                                compare=False)
+
+
+class DecisionMemo:
+    """Cross-replica decision memoization (DESIGN.md §11).
+
+    The fleet engine sets :attr:`context` to a token capturing everything
+    decision-relevant that lives *outside* the provisioning call — the
+    shared market-state index and the policy's internal-state digest —
+    before each replica's decision.  The policy/provisioner side then keys
+    the solve on ``(context, request shape + pods, excluded offerings)``:
+    replicas whose keys coincide share one GSS×ILP solve, turning
+    O(replicas · solves) into O(unique · solves).  ``context=None`` (the
+    default, and the standalone-``ClusterSim`` state) disables lookups, so
+    attaching a memo can never change single-run behavior.
+
+    Correctness rests on the policy determinism contract (DESIGN.md §9):
+    a decision is a pure function of (market snapshot, request, excluded
+    set, policy state), all of which the key covers.  Stored decisions are
+    returned by reference — engine code never mutates a decision's pool,
+    trace, or metrics after launch — with only the diagnostic
+    ``wall_seconds``/``cache`` fields rewritten per hit.
+    """
+
+    def __init__(self) -> None:
+        self._store: Dict = {}
+        self.context: Optional[Tuple] = None
+        self.hits = 0
+        self.misses = 0
+
+    def key(self, request: Request, excluded: Set[str]) -> Optional[Tuple]:
+        if self.context is None:
+            return None
+        return (self.context, request.pods, request.cpu_per_pod,
+                request.mem_per_pod, request.workload, frozenset(excluded))
+
+    def lookup(self, key) -> Optional[ProvisioningDecision]:
+        hit = self._store.get(key)
+        if hit is None:
+            self.misses += 1
+        else:
+            self.hits += 1
+        return hit
+
+    def fetch(self, key, wall_seconds: float,
+              ) -> Optional[ProvisioningDecision]:
+        """Lookup plus the per-hit diagnostic stamping every memoized
+        provision path shares: a hit comes back with fresh ``wall_seconds``
+        and memo provenance in ``cache``.  Only ``cache`` is
+        ``compare=False``; ``wall_seconds`` participates in equality, so
+        full ``==`` against a standalone decision holds exactly when the
+        wall clock is injected (tests use ``clock=lambda: 0.0``) — the
+        record-level and field-level equality contracts are
+        clock-independent because records never include wall time."""
+        hit = self.lookup(key)
+        if hit is None:
+            return None
+        return dataclasses.replace(hit, wall_seconds=wall_seconds,
+                                   cache={"memo_hit": 1.0})
+
+    def store(self, key, decision: ProvisioningDecision) -> None:
+        self._store[key] = decision
+
+    def count_hit(self) -> None:
+        """Record a hit served outside :meth:`fetch` — the collect-then-solve
+        batch path counts a duplicate pending key as a memo hit, keeping the
+        hit/miss counters identical to the sequential path's
+        (DESIGN.md §12)."""
+        self.hits += 1
+
+    @property
+    def unique_solves(self) -> int:
+        return len(self._store)
+
+    def stats(self) -> Dict[str, int]:
+        return {"memo_hits": self.hits, "memo_misses": self.misses,
+                "memo_unique_solves": self.unique_solves}
+
+
+class PendingDecision:
+    """Placeholder for a decision whose GSS×ILP solve was deferred into a
+    :class:`SolveBatch` (the fleet engine's collect-then-solve tick phase,
+    DESIGN.md §12).  ``resolve()`` is valid only after the owning batch's
+    :meth:`SolveBatch.execute` ran; a *hit* token (duplicate memo key) gets
+    the shared decision re-stamped exactly like a sequential memo hit."""
+
+    __slots__ = ("_job", "_hit", "_wall")
+
+    def __init__(self, job: "_SolveJob", hit: bool, wall: float):
+        self._job = job
+        self._hit = hit
+        self._wall = wall
+
+    def resolve(self) -> ProvisioningDecision:
+        if self._job.decision is None:
+            raise RuntimeError("PendingDecision.resolve() before "
+                               "SolveBatch.execute() — the collect phase "
+                               "must run the batch before launching")
+        if self._hit:
+            return dataclasses.replace(self._job.decision,
+                                       wall_seconds=self._wall,
+                                       cache={"memo_hit": 1.0})
+        return self._job.decision
+
+
+@dataclasses.dataclass
+class _SolveJob:
+    """One deferred guarded-GSS solve plus its decision-builder."""
+
+    items: List[CandidateItem]
+    market: CompiledMarket
+    req_pods: int
+    exclude: Optional[np.ndarray]
+    tolerance: float
+    timer: Callable[[], float]
+    finish: Callable[[Optional[NodePool], GssTrace], ProvisioningDecision]
+    coarsening: Optional[CoarseningConfig] = None
+    decision: Optional[ProvisioningDecision] = None
+
+
+class SolveBatch:
+    """Collect-then-solve executor (DESIGN.md §12).
+
+    During a fleet tick's collect phase, provisioners with a batch attached
+    enqueue their memo-miss solves here instead of running them inline;
+    duplicate memo keys collapse onto the first job (and count as memo
+    hits, exactly like the sequential path).  ``execute()`` groups the
+    collected jobs by compiled market and runs each group through one
+    :func:`~repro_torch.core.gss.bracketed_gss_many` — every decision's pools and
+    traces are bit-identical to inline solving because the batched search
+    *is* the sequential search at dispatch granularity.
+    """
+
+    def __init__(self, backend: Optional[SolverBackend] = None):
+        if isinstance(backend, str):
+            from .backend import make_backend
+            backend = make_backend(backend)
+        self.backend = backend
+        self._jobs: List[_SolveJob] = []
+        self._by_key: Dict = {}
+
+    def __len__(self) -> int:
+        return len(self._jobs)
+
+    def pending(self, key, wall: float) -> Optional[PendingDecision]:
+        """A hit token for an already-enqueued key, else None."""
+        job = self._by_key.get(key)
+        if job is None:
+            return None
+        return PendingDecision(job, hit=True, wall=wall)
+
+    def enqueue(self, key, *, items, market, req_pods, exclude, tolerance,
+                timer, finish, coarsening=None) -> PendingDecision:
+        job = _SolveJob(items=items, market=market, req_pods=req_pods,
+                        exclude=exclude, tolerance=tolerance, timer=timer,
+                        finish=finish, coarsening=coarsening)
+        self._jobs.append(job)
+        if key is not None:
+            self._by_key[key] = job
+        return PendingDecision(job, hit=False, wall=0.0)
+
+    def execute(self) -> int:
+        """Solve every collected job (one batched search per compiled
+        market) and build their decisions.  Returns the job count."""
+        jobs, self._jobs, self._by_key = self._jobs, [], {}
+        groups: Dict = {}
+        for job in jobs:
+            gkey = (id(job.market), job.tolerance, id(job.timer),
+                    job.coarsening)
+            groups.setdefault(gkey, []).append(job)
+        for group in groups.values():
+            results = bracketed_gss_many(
+                group[0].items, [j.req_pods for j in group],
+                tolerance=group[0].tolerance, market=group[0].market,
+                excludes=[j.exclude for j in group], timer=group[0].timer,
+                backend=self.backend, coarsening=group[0].coarsening)
+            for job, (pool, trace) in zip(group, results):
+                job.decision = job.finish(pool, trace)
+        return len(jobs)
+
+
+def exclusion_mask(items: Sequence[CandidateItem], excluded: Set[str],
+                   extra: Optional[np.ndarray] = None,
+                   ) -> Optional[np.ndarray]:
+    """Boolean solver mask over ``items`` for the TTL-cached offering_ids —
+    the single definition of exclusion semantics, shared by the KubePACS
+    provisioner and every scenario-engine policy.  ``extra`` ORs a
+    caller-supplied feasibility mask (e.g. the serving SLO mask of
+    DESIGN.md §15) into the same path, so additional hard constraints
+    reach ``solve_ilp`` exactly like §4.1 interrupt exclusions."""
+    if not excluded and extra is None:
+        return None
+    mask = np.array([it.offering.offering_id in excluded for it in items],
+                    dtype=bool)
+    if extra is not None:
+        mask |= np.asarray(extra, dtype=bool)
+    return mask
+
+
+def preprocess(catalog: Sequence[Offering], request: Request,
+               excluded: Optional[Set[str]] = None) -> List[CandidateItem]:
+    """Stage 1 of Algorithm 1 (DatasetPreProcessing, lines 3–6)."""
+    excluded = excluded or set()
+    base_prices = build_base_price_index(catalog)
+    items: List[CandidateItem] = []
+    for o in catalog:
+        if o.offering_id in excluded or o.spot_price <= 0 or o.t3 <= 0:
+            continue
+        pods = pods_per_instance(o, request)
+        if pods < 1:
+            continue
+        bs = scaled_benchmark_score(o, set(request.workload), base_prices)
+        items.append(CandidateItem(offering=o, pods=pods, bs=bs,
+                                   spot_price=o.spot_price, t3=o.t3))
+    return items
+
+
+class KubePACSProvisioner:
+    """ILP + GSS provisioning with §4.1 interrupt handling."""
+
+    def __init__(self, tolerance: float = 0.01, ttl_hours: float = 2.0,
+                 guarded_gss: bool = True,
+                 timer: Callable[[], float] = time.perf_counter,
+                 coarsening: Optional[CoarseningConfig] = None,
+                 backend: Optional[SolverBackend] = None):
+        self.tolerance = tolerance
+        self.guarded_gss = guarded_gss   # bracketed prescan (DESIGN.md §7)
+        # pinned solver backend for inline solves (None = the process
+        # default).  The chaos degradation ladder (DESIGN.md §16) uses
+        # this to run per-rung provisioners; the batch path keeps the
+        # process backend (batching is fleet-engine-owned).
+        self.backend = backend
+        # demand-coarsening policy threaded into every solve (None = the
+        # process-wide DEFAULT_COARSENING, inert at the paper's scales)
+        self.coarsening = coarsening
+        self.cache = UnavailableOfferingsCache(ttl_hours)
+        self.event_queue: collections.deque[InterruptEvent] = collections.deque()
+        self.clock = 0.0   # advanced by the caller (simulator hours)
+        # wall timer for the diagnostic wall_seconds stamps; injectable so
+        # tests can assert full ProvisioningDecision equality (decision
+        # *content* never depends on it)
+        self.timer = timer
+        # compiled-market cache (DESIGN.md §8): bundle splits / pod / bound
+        # arrays depend only on the catalog snapshot and the request's
+        # per-pod shape, so re-optimisation against the *same* snapshot
+        # object (§4.1 interrupt handling within a market step, demand
+        # resizing) skips preprocessing; a fresh snapshot (prices moved)
+        # correctly rebuilds.
+        self._market_catalog: Optional[Sequence[Offering]] = None
+        self._market_shape: Optional[Tuple] = None
+        self._market_items: List[CandidateItem] = []
+        self._market: Optional[CompiledMarket] = None
+        # cross-replica decision memo (attached by the fleet engine; None =
+        # standalone operation, memo lookups disabled)
+        self.decision_memo: Optional[DecisionMemo] = None
+        # collect-then-solve batch (attached by the fleet engine; None =
+        # inline solving).  Only the guarded-GSS path batches; the
+        # unguarded search solves inline regardless (DESIGN.md §12).
+        self.solve_batch: Optional[SolveBatch] = None
+
+    def _compiled(self, request: Request, catalog: Sequence[Offering],
+                  precompiled: Optional[Tuple[List[CandidateItem],
+                                              CompiledMarket]] = None,
+                  ) -> Tuple[List[CandidateItem], CompiledMarket]:
+        if precompiled is not None:
+            # scenario-engine sharing hook: N replica provisioners solving
+            # against the same snapshot reuse one preprocessed candidate set
+            # + CompiledMarket (candidate shape ignores request.pods, so a
+            # shortfall-sized replacement request shares it too)
+            return precompiled
+        # the held reference keeps the snapshot alive, so the identity check
+        # cannot alias a recycled object id
+        shape = (request.cpu_per_pod, request.mem_per_pod, request.workload)
+        if catalog is not self._market_catalog or shape != self._market_shape:
+            items = preprocess(catalog, request)
+            self._market_catalog = catalog
+            self._market_shape = shape
+            self._market_items = items
+            self._market = compile_market(items)
+        return self._market_items, self._market
+
+    # -- main optimization cycle -------------------------------------------
+    def provision(self, request: Request, catalog: Sequence[Offering],
+                  precompiled: Optional[Tuple[List[CandidateItem],
+                                              CompiledMarket]] = None,
+                  ) -> ProvisioningDecision | PendingDecision:
+        """One optimization cycle.  With a :class:`SolveBatch` attached (the
+        fleet engine's collect phase) a memo-miss returns a
+        :class:`PendingDecision` token instead of solving inline; the
+        engine resolves tokens after ``SolveBatch.execute()``."""
+        t0 = self.timer()
+        excluded = self.cache.excluded(self.clock)
+        memo = self.decision_memo
+        mkey = memo.key(request, excluded) if memo is not None else None
+        batch = self.solve_batch if self.guarded_gss else None
+        if mkey is not None:
+            if batch is not None:
+                tok = batch.pending(mkey, self.timer() - t0)
+                if tok is not None:      # same key already collected this
+                    memo.count_hit()     # phase: a memo hit, shared solve
+                    return tok
+            hit = memo.fetch(mkey, self.timer() - t0)
+            if hit is not None:
+                return hit
+        items, market = self._compiled(request, catalog, precompiled)
+        exclude = exclusion_mask(items, excluded)
+        if batch is not None:
+            def finish(pool, trace, _request=request, _excluded=excluded,
+                       _mkey=mkey, _t0=t0):
+                return self._finalize(_request, _excluded, pool, trace,
+                                      _t0, _mkey)
+            return batch.enqueue(mkey, items=items, market=market,
+                                 req_pods=request.pods, exclude=exclude,
+                                 tolerance=self.tolerance, timer=self.timer,
+                                 finish=finish, coarsening=self.coarsening)
+        search = bracketed_gss if self.guarded_gss else golden_section_search
+        pool, trace = search(items, request.pods, tolerance=self.tolerance,
+                             market=market, exclude=exclude, timer=self.timer,
+                             backend=self.backend,
+                             coarsening=self.coarsening)
+        return self._finalize(request, excluded, pool, trace, t0, mkey)
+
+    def _finalize(self, request: Request, excluded: Set[str],
+                  pool: Optional[NodePool], trace: GssTrace, t0: float,
+                  mkey) -> ProvisioningDecision:
+        """Post-search decision assembly, shared by the inline path and the
+        batch ``finish`` callbacks so both build identical decisions."""
+        wall = self.timer() - t0
+        if pool is None:   # demand exceeds bounded capacity: surface it
+            pool = NodePool(items=[], counts=[], request=request)
+            alpha = None
+        else:
+            pool.request = request
+            alpha = pool.alpha
+        metrics = decision_metrics(pool, request.pods)
+        decision = ProvisioningDecision(pool=pool, trace=trace, alpha=alpha,
+                                        wall_seconds=wall,
+                                        excluded_offerings=excluded,
+                                        metrics=metrics)
+        if mkey is not None:
+            self.decision_memo.store(mkey, decision)
+        return decision
+
+    # -- §4.1 reactive loop ---------------------------------------------------
+    def enqueue(self, events: Iterable[InterruptEvent]) -> None:
+        """Spot Interrupt Event Messages → Spot Interrupt Event Queue."""
+        self.event_queue.extend(events)
+
+    def handle_interrupts(self, request: Request,
+                          catalog: Sequence[Offering],
+                          surviving_pods: int = 0,
+                          precompiled: Optional[Tuple[List[CandidateItem],
+                                                      CompiledMarket]] = None,
+                          ) -> Optional[ProvisioningDecision | PendingDecision]:
+        """Drain the queue, cache interrupted offerings, re-optimize.
+
+        ``surviving_pods`` is the capacity still alive in the cluster; the
+        replacement request covers only the shortfall (rapid recovery, §4.1).
+        Returns None when the queue was empty or nothing is missing.
+        """
+        drained = False
+        while self.event_queue:
+            ev = self.event_queue.popleft()
+            self.cache.add(ev.offering_id, self.clock)
+            drained = True
+        if not drained:
+            return None
+        shortfall = max(0, request.pods - surviving_pods)
+        if shortfall == 0:
+            return None
+        repl_request = dataclasses.replace(request, pods=shortfall)
+        return self.provision(repl_request, catalog, precompiled)
+
+
+def merge_pools(base: NodePool, extra: NodePool) -> NodePool:
+    """Union of two decisions (replacement capacity joins the survivors)."""
+    counts: Dict[str, int] = collections.Counter()
+    items: Dict[str, CandidateItem] = {}
+    for pool in (base, extra):
+        for it, c in zip(pool.items, pool.counts):
+            counts[it.offering.offering_id] += c
+            items[it.offering.offering_id] = it
+    merged_items = list(items.values())
+    merged_counts = [counts[it.offering.offering_id] for it in merged_items]
+    return NodePool(items=merged_items, counts=merged_counts,
+                    alpha=base.alpha, request=base.request)
