@@ -4,22 +4,34 @@
 Drives the port's decision plane (``src/repro_torch``) on the card at the
 system's real sizes and holds every result to the host:
 
-1. prints the card (``nvidia-smi``) and builds the cover-DP kernel from
-   ``src/repro_torch/csrc/cover_dp.cu``;
-2. holds the kernel to its plain torch version on the card and to the host
-   NumPy oracle — dp bytes and bits exactly — on the ``_run_pallas_check``
-   case, a ragged stack of 300 groups with targets up to 8192, and a stack
-   with a group too wide for shared memory; times the kernel, the plain
-   version and the host at the widest shape;
-3. ``KubePACSProvisioner().provision`` (default backend: the card) on the
-   full 9,792-offering catalog at 1000 and 5000 pods, equal to the NumPy
-   backend's decision;
+1. prints the card (``nvidia-smi``) and builds the CUDA library from every
+   ``src/repro_torch/csrc/*.cu`` (``cover_dp``, ``fused_rows``, ``score``);
+2. holds the cover-DP kernel to its plain torch version on the card and to
+   the host NumPy oracle — dp bytes and bits exactly — on the
+   ``_run_pallas_check`` case, a ragged stack of 300 groups with targets up
+   to 8192, and a stack with a group too wide for shared memory; times the
+   kernel, the plain version and the host at the widest shape;
+3. ``KubePACSProvisioner().provision`` (default backend ``torch``: the
+   cover-DP kernel) on the full 9,792-offering catalog at 1000 and 5000
+   pods, equal to the NumPy backend's decision;
 4. a fleet tick — ``SolveBatch("torch")`` over 32 jittered decisions — at
-   100 items x 1000 pods and 250 items x 5000 pods, equal to NumPy's.
+   100 items x 1000 pods and 250 items x 5000 pods, equal to NumPy's;
+5. the fused plane's kernels at its main-path shapes: ``fused_rows``
+   against ``fused_rows_plain`` (counts and status bitwise) on the D x G
+   prescan stack of ``provision(5000)`` and a golden-round stack of the
+   250 x 5000 tick, ``score`` against ``score_plain`` (bitwise); times the
+   kernels, the plain versions and, for ``score``, one ``torch.matmul``;
+6. ``provision()`` at 1000 and 5000 pods and both fleet ticks through
+   ``torch:fused``, each equal to the NumPy decision with no fallback
+   solve, at least one verification solve, and ``fused_rows`` and
+   ``score`` launched; walls of ``torch:fused``, ``torch`` and ``numpy``
+   and the peak device memory;
+7. where the time of one fused batch (the 250 x 5000 tick) goes: host
+   replay, the sampled NumPy verification, upload, kernels, readback.
 
 Every phase that fails raises, and the script exits non-zero.  The line
-before the last is the kernel record (times, launches on the main path,
-bound); the last line is ``{"ok": true, "device": {...}}``.
+before the last is the kernel record (times, launches on the main paths,
+bounds); the last line is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card and ``nvcc`` (``CUDA_HOME``, default ``/usr/local/cuda``).
@@ -28,6 +40,7 @@ with one CUDA card and ``nvcc`` (``CUDA_HOME``, default ``/usr/local/cuda``).
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -150,15 +163,17 @@ def run(dev) -> dict:
                                   SolveBatch, TorchBackend, compile_market,
                                   generate_catalog, get_backend, preprocess)
     from repro_torch.core import cover_dp as cdp
+    from repro_torch.core import cuda_lib
     from repro_torch.core.gss import bracketed_gss_many
 
     # -- phase 1: build --------------------------------------------------
     t0 = time.perf_counter()
-    lib, log = cdp.build()
+    lib, log = cuda_lib.build()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if ln.startswith("[") or "registers" in ln or "spill" in ln]
     print(f"phase1 build: {lib.name} in {build_s:.3f} s; " + " | ".join(ptxas))
+    cuda_lib.library()
 
     # -- phase 2: kernel vs plain version vs host oracle -------------------
     def hold(groups, label):
@@ -347,15 +362,287 @@ def run(dev) -> dict:
               f"host numpy {h_ms:.4f} ms bound {b_ms:.6f} ms ({b_by})")
         record = (err, k_ms, p_ms, b_ms, b_by)     # the last: the 250x5000 tick
     err, k_ms, p_ms, b_ms, b_by = record
-
-    return {"kernels": [{
+    kernels = [{
         "name": "cover_dp", "route": "cuda",
         "source": "src/repro_torch/csrc/cover_dp.cu",
         "replaces": "src/repro/core/backend.py:329 (relax_kernel); "
                     "src/repro/core/backend.py:635 (_cover_kernel)",
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]}
+        "library_ms": None}]
+    ticks = [(items, market, demands, name) for (items, market, demands), name
+             in zip(shapes, ("100x1000", "250x5000"))]
+    return {"kernels": kernels + run_fused(dev, catalog, big, ticks)}
+
+
+def rows_bound(dm, coefs, info):
+    """Least time the card needs for one ``fused_rows`` stack: its inputs
+    (coefficients, flags, demands, the market's item and bundle arrays)
+    read once and its counts and statuses written once over HBM, or its
+    float64 operations over the fp64 peak — 3 per DP column of every core
+    and kept bundle, and 2*ceil(log2 n) + 10 per DP bundle of a row for the
+    sort and the prune — as this run's rows need them (``info`` from
+    ``fused_rows_plain``)."""
+    R, N = coefs.shape
+    nbytes = R * N * (8 + 1 + 8) + R * (8 + 1) + N * 16 + dm.n_bundles * 24
+    ops = sum(3 * (r["core"] + r["kept"]) * r["eff_res"]
+              + r["n"] * (2 * math.ceil(math.log2(max(r["n"], 2))) + 10)
+              for r in info)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def score_bound(D, N):
+    """Counts and the three market vectors read once, the demands read and
+    the scores written once, over HBM; or 6 flops a column over fp64."""
+    t_bytes = (D * N * 8 + 3 * N * 8 + 2 * D * 8) / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * D * N / FP64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_fused(dev, catalog, big, ticks) -> list:
+    """Phases 5-7 on ``dev``: the fused plane.  ``ticks`` holds the fleet
+    ticks of phase 4 as ``(items, market, demands, name)``; returns the
+    kernel records of ``fused_rows`` and ``score``."""
+    import torch
+
+    from repro_torch.core import (FusedTorchBackend, KubePACSProvisioner,
+                                  NumpyBackend, Request, SolveBatch,
+                                  make_backend)
+    from repro_torch.core import backend as bmod
+    from repro_torch.core import fused_rows as fr
+    from repro_torch.core import score as sc
+    from repro_torch.core.gss import bracketed_gss_many
+
+    class Capture(FusedTorchBackend):
+        """Keeps the inputs of every row stack and score launch."""
+
+        def __init__(self, device):
+            super().__init__(device)
+            self.rows, self.scores = [], []
+
+        def _rows(self, *args):
+            self.rows.append(args)
+            return FusedTorchBackend._rows(self, *args)
+
+        def _score(self, *args):
+            self.scores.append(args)
+            return FusedTorchBackend._score(self, *args)
+
+    # -- phase 5: kernels vs plain versions at main-path shapes -------------
+    req5k = Request(pods=5000, cpu_per_pod=2, mem_per_pod=2,
+                    workload={"network"})
+    cap_p = Capture(dev)
+    KubePACSProvisioner(timer=fake_timer, backend=cap_p).provision(req5k,
+                                                                   catalog)
+    t_items, t_market, t_demands, t_name = ticks[-1]
+    cap_t = Capture(dev)
+    bracketed_gss_many(t_items, t_demands, tolerance=TOLERANCE,
+                       market=t_market, timer=fake_timer, backend=cap_t)
+    budget = cap_p.bits_budget
+    rows_rec = None
+    for name, (dm, coefs, actives, reqs, coarse, max_req) in (
+            ("prescan of provision 5000", cap_p.rows[0]),
+            (f"golden round of tick {t_name}", cap_t.rows[2])):
+        def kernel():
+            return fr.fused_rows(dm, coefs, actives, reqs, coarse, max_req,
+                                 budget)
+
+        def plain(info=None):
+            return fr.fused_rows_plain(dm, coefs, actives, reqs, coarse,
+                                       max_req, info)
+
+        ck, sk = kernel()
+        info = []
+        cp, sp = plain(info)
+        torch.cuda.synchronize()
+        check(torch.equal(ck, cp) and torch.equal(sk, sp),
+              f"fused_rows {name}: kernel != plain version on the card")
+        err = float((ck - cp).abs().max()) if ck.numel() else 0.0
+        k_ms = cuda_ms(torch, kernel, 5)
+        p_ms = cuda_ms(torch, plain, 1)
+        b_ms, b_by = rows_bound(dm, coefs, info)
+        status = sk.cpu().numpy()
+        print(f"phase5 fused_rows at {name}: rows={coefs.shape[0]} "
+              f"N={dm.n_items} B={dm.n_bundles} feasible="
+              f"{int((status == fr.FEASIBLE).sum())} max kept="
+              f"{max(r['kept'] for r in info)} max core="
+              f"{max(r['core'] for r in info)} max eff_res="
+              f"{max(r['eff_res'] for r in info)}: bitwise equal; kernel "
+              f"{k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.6f} ms "
+              f"({b_by})")
+        rows_rec = rows_rec or (err, k_ms, p_ms, b_ms, b_by)
+
+    dm, counts, reqf = cap_t.scores[1]          # the first golden round
+    sk = sc.score(counts, dm.perf, dm.price, dm.podsf, reqf)
+    sp = sc.score_plain(counts, dm.perf, dm.price, dm.podsf, reqf)
+    torch.cuda.synchronize()
+    check(torch.equal(sk, sp), "score: kernel != plain version on the card")
+    s_err = float((sk - sp).abs().max())
+    s_ms = cuda_ms(torch, lambda: sc.score(counts, dm.perf, dm.price,
+                                           dm.podsf, reqf), 20)
+    sp_ms = cuda_ms(torch, lambda: sc.score_plain(counts, dm.perf, dm.price,
+                                                  dm.podsf, reqf), 5)
+    cf = counts.to(torch.float64)
+    vecs = torch.stack([dm.perf, dm.price, dm.podsf], dim=1)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(cf, vecs), 20)
+    sb_ms, sb_by = score_bound(*counts.shape)
+    print(f"phase5 score at golden round of tick {t_name}: D={counts.shape[0]}"
+          f" N={counts.shape[1]}: bitwise equal; kernel {s_ms:.4f} ms plain "
+          f"{sp_ms:.4f} ms torch.matmul {lib_ms:.4f} ms bound {sb_ms:.6f} ms "
+          f"({sb_by})")
+
+    # -- phase 6: the main path through torch:fused --------------------------
+    n_rows = n_score = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def counted(drive):
+        nonlocal n_rows, n_score
+        fr.fused_rows.launches = sc.score.launches = 0
+        out = drive()
+        got = (fr.fused_rows.launches, sc.score.launches)
+        n_rows += got[0]
+        n_score += got[1]
+        return out, got
+
+    def fused_ok(be, what, got):
+        info = be.device_cache_info()
+        check(info["fallback_solves"] == 0, f"{what}: fallback solves {info}")
+        check(info["verify_solves"] >= 1, f"{what}: no verification solve")
+        check(got[0] > 0 and got[1] > 0, f"{what}: launches {got}")
+
+    for pods in (1000, 5000):
+        req = Request(pods=pods, cpu_per_pod=2, mem_per_pod=2,
+                      workload={"network"})
+        provs = {spec: KubePACSProvisioner(timer=fake_timer,
+                                           backend=make_backend(spec))
+                 for spec in ("torch:fused", "torch", "numpy")}
+        d_f, got = counted(lambda: provs["torch:fused"].provision(req,
+                                                                  catalog))
+        d_n = provs["numpy"].provision(req, catalog)
+        check(d_f == d_n and d_f.pool.as_dict() == d_n.pool.as_dict()
+              and d_f.alpha == d_n.alpha and d_f.trace == d_n.trace,
+              f"torch:fused provision({pods}) differs from NumPy")
+        fused_ok(provs["torch:fused"].backend, f"provision({pods})", got)
+        walls = {spec: wall_s(lambda p=p: p.provision(req, catalog), 3)
+                 for spec, p in provs.items()}
+        print(f"phase6 provision pods={pods} torch:fused: alpha="
+              f"{d_f.alpha!r} nodes={sum(d_f.pool.counts)} launches "
+              f"fused_rows={got[0]} score={got[1]}; wall " + " ".join(
+                  f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
+              + ": equal to NumPy")
+
+    def tick(items, market, demands, spec):
+        prov = KubePACSProvisioner(timer=fake_timer)
+        prov.solve_batch = SolveBatch(spec)
+        toks = [prov.provision(Request(pods=r, cpu_per_pod=2, mem_per_pod=2),
+                               big, precompiled=(items, market))
+                for r in demands]
+        check(prov.solve_batch.execute() == len(demands), "batch size")
+        return [t.resolve() for t in toks], prov.solve_batch.backend
+
+    for items, market, demands, name in ticks:
+        (dec_f, be), got = counted(
+            lambda: tick(items, market, demands, "torch:fused"))
+        dec_n, _ = tick(items, market, demands, NumpyBackend())
+        check(dec_f == dec_n and all(
+            a.pool.as_dict() == b.pool.as_dict() for a, b in zip(dec_f, dec_n)),
+            f"torch:fused fleet tick {name} differs from NumPy")
+        fused_ok(be, f"fleet tick {name}", got)
+        walls = {spec: wall_s(lambda s=spec: tick(items, market, demands, s),
+                              3)
+                 for spec in ("torch:fused", "torch", "numpy")}
+        print(f"phase6 fleet tick {name} x {len(demands)} decisions "
+              f"torch:fused: launches fused_rows={got[0]} score={got[1]}; "
+              "wall " + " ".join(f"{k} {v * 1e3:.3f} ms"
+                                 for k, v in walls.items())
+              + ": equal to NumPy")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"phase6 peak device memory (max_memory_allocated): {peak} B")
+
+    # -- phase 7: where one fused batch's time goes --------------------------
+    class Timed(FusedTorchBackend):
+        """Synchronises around each device stage: upload, kernels (CUDA
+        events), readback; the rest of the wall is host work."""
+
+        def __init__(self, device):
+            super().__init__(device)
+            self.ms = dict.fromkeys(("verify", "upload", "kernels",
+                                     "readback"), 0.0)
+
+        def _decisions(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = FusedTorchBackend._decisions(self, *args)
+            torch.cuda.synchronize()
+            self.ms["upload"] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        def _kernel(self, fn, *args):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(self, *args)
+            end.record()
+            end.synchronize()
+            self.ms["kernels"] += start.elapsed_time(end)
+            return out
+
+        def _rows(self, *args):
+            return self._kernel(FusedTorchBackend._rows, *args)
+
+        def _score(self, *args):
+            return self._kernel(FusedTorchBackend._score, *args)
+
+        def _to_host(self, *tensors):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = FusedTorchBackend._to_host(*tensors)
+            self.ms["readback"] += (time.perf_counter() - t0) * 1e3
+            return out
+
+    timed = Timed(dev)
+    verify = bmod._FusedGssRecord._verify_sample
+
+    def timed_verify(rec, grid):
+        t0 = time.perf_counter()
+        try:
+            return verify(rec, grid)
+        finally:
+            timed.ms["verify"] += (time.perf_counter() - t0) * 1e3
+
+    bmod._FusedGssRecord._verify_sample = timed_verify
+    try:
+        t0 = time.perf_counter()
+        bracketed_gss_many(t_items, t_demands, tolerance=TOLERANCE,
+                           market=t_market, timer=fake_timer, backend=timed)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        bmod._FusedGssRecord._verify_sample = verify
+    ms = timed.ms
+    print(f"phase7 breakdown fused batch tick {t_name}: wall {wall:.3f} ms = "
+          f"host replay and glue {wall - sum(ms.values()):.3f} + verify "
+          f"(NumPy) {ms['verify']:.3f} + upload {ms['upload']:.3f} + kernels "
+          f"{ms['kernels']:.3f} + readback {ms['readback']:.3f} ms; kernel "
+          f"share {ms['kernels'] / wall:.4f}")
+
+    err, k_ms, p_ms, b_ms, b_by = rows_rec
+    return [
+        {"name": "fused_rows", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_rows.cu",
+         "replaces": "src/repro/core/backend.py:635 (_cover_kernel, as "
+                     "the fused row solver of _solver_core calls it, "
+                     "backend.py:885-1049)",
+         "launches": n_rows, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
+        {"name": "score", "route": "cuda",
+         "source": "src/repro_torch/csrc/score.cu",
+         "replaces": "src/repro/core/backend.py:847 (_score_kernel)",
+         "launches": n_score, "max_abs_err": s_err, "ms": s_ms,
+         "plain_ms": sp_ms, "bound_ms": sb_ms, "bound_by": sb_by,
+         "library_ms": lib_ms}]
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """KubePACS control plane on PyTorch/CUDA: the decision plane of
-``repro.core`` with every cover DP on the card's hand-written kernel."""
+``repro.core`` with its device work in the card's hand-written kernels
+(the cover DP, the fused row solver, the pool score)."""
 
 from . import events_log
 from .market import (Offering, InterruptEvent, SpotMarketSimulator,
@@ -12,9 +13,9 @@ from .efficiency import (Request, CandidateItem, NodePool, pods_per_instance,
                          reweight_items, score_counts_batch,
                          score_counts_many)
 from .scaling import scaled_benchmark_score, build_base_price_index, matches_intent
-from .backend import (DEFAULT_COARSENING, CoarseningConfig, NumpyBackend,
-                      SolverBackend, TorchBackend, get_backend, make_backend,
-                      set_backend)
+from .backend import (DEFAULT_COARSENING, CoarseningConfig,
+                      FusedTorchBackend, NumpyBackend, SolverBackend,
+                      TorchBackend, get_backend, make_backend, set_backend)
 from .ilp import (solve_ilp, solve_ilp_batch, solve_ilp_many, solve_ilp_pulp,
                   solve_ilp_reference, objective_coefficients,
                   CompiledMarket, compile_market, reweight_market)
@@ -43,8 +44,8 @@ __all__ = [
     "reweight_items", "reweight_market", "DecisionMemo",
     "solve_ilp_many", "bracketed_gss_many", "score_counts_many",
     "SolveBatch", "PendingDecision",
-    "SolverBackend", "NumpyBackend", "TorchBackend", "get_backend",
-    "set_backend", "make_backend",
+    "SolverBackend", "NumpyBackend", "TorchBackend", "FusedTorchBackend",
+    "get_backend", "set_backend", "make_backend",
     "CoarseningConfig", "DEFAULT_COARSENING", "events_log",
     "catalog_from_reference", "items_from_reference",
 ]

@@ -1,8 +1,9 @@
-"""The cover-DP kernel: wrapper, plain version and build helper.
+"""The cover-DP kernel: wrapper and plain version.
 
 ``cover_dp`` runs the canonical recurrence of :mod:`repro_torch.core.backend`
 for a ragged stack of groups in one launch of the hand-written CUDA kernel
-``csrc/cover_dp.cu`` (one CTA per group, the bundle loop inside the CTA).
+``csrc/cover_dp.cu`` (one CTA per group, the bundle loop inside the CTA;
+the recurrence itself is ``cover_dp_block`` of ``csrc/cover_dp.cuh``).
 It takes a :class:`CoverBatch` — the groups concatenated without padding,
 with per-group offsets — and returns the concatenated ``dp`` rows and, when
 asked, the improvement bits, both bitwise equal to the host reference.
@@ -13,75 +14,23 @@ runs :func:`cover_dp_plain`, a torch scan over bundles on a padded
 is the CPU path and what the kernel is held to on the card; nothing falls
 back to it.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/``
-of the checkout at first use and loaded with ``ctypes``.
+The kernel is part of the library that :mod:`repro_torch.core.cuda_lib`
+builds from ``csrc/`` at first use.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "cover_dp.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+from .cuda_lib import library
 
 #: dynamic shared memory a CTA may hold for its dp row: T <= 8192 (64 KB)
 #: keeps three CTAs resident per SM; wider groups run in global memory
 SMEM_ROW_BYTES = (8192 + 1) * 8
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("cover_dp: nvcc not found (set CUDA_HOME)")
-    return found
-
-
-def build() -> Tuple[Path, str]:
-    """Compile ``csrc/cover_dp.cu`` unless a library of this exact source
-    and flags is already built; returns ``(library path, nvcc output)``."""
-    key = hashlib.blake2b(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode(),
-                          digest_size=8).hexdigest()
-    lib = BUILD_DIR / f"libcover_dp_{key}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"cover_dp: nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
-
-
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    path, _log = build()
-    lib = ctypes.CDLL(str(path))
-    fn = lib.cover_dp_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,7 +137,7 @@ def cover_dp(batch: CoverBatch, with_bits: bool = True,
         for o in (0, nb, nb + G + 1, nb + 2 * G + 1, nb + 3 * G + 2))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().cover_dp_launch(
+        err = library().cover_dp_launch(
             pods, batch.costs.data_ptr(), b_off, targets, dp_off, bits_off,
             dp.data_ptr(), bits.data_ptr() if with_bits else None,
             G, smem, stream)

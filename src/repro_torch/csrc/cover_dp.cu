@@ -6,15 +6,8 @@
 //     groups, launched once per bundle by lax.scan;
 //   * _cover_kernel in FusedJaxBackend._pallas_cover_fn: the whole forward DP
 //     of one row, with the dp row carried across sequential grid steps.
-// Both compute, per group (bpods, costs, T), in float64:
-//     dp[0] = 0, dp[j>0] = +inf
-//     for b in bundle order:
-//         cand[j]    = dp[j - pb] + cb  (j >= pb),  cb  (1 <= j < pb)
-//         bits[b, j] = cand[j] < dp[j]              (bits[b, 0] = 0)
-//         dp[j]      = min(dp[j], cand[j])          (dp[0] stays 0)
-// with a non-finite cb leaving dp untouched and writing a zero bits row.
-// dp and bits are bitwise the host reference (NumpyBackend._one/_values):
-// the kernel only adds, compares and selects, in the host's order.
+// The recurrence, and the in-place tiled update that keeps it exact, live in
+// cover_dp.cuh (cover_dp_block), which fused_rows.cu calls too.
 //
 // What bounds it on an H100: not bytes. The bits are B*(T+1) bytes a group
 // and dp is read and written in shared memory, but the B bundles of a group
@@ -27,26 +20,26 @@
 //   * the dp row lives in dynamic shared memory when (T+1)*8 bytes fit the
 //     launch's allocation, else in the group's own slice of the dp output in
 //     global memory (L2-resident at these sizes);
-//   * the row is updated in place, in descending tiles of THREADS*PER_THREAD
-//     columns: a tile reads its candidates into registers, then one barrier,
-//     then writes. pb >= 1, so dp[j - pb] lies below the tile's writes and
-//     above nothing a later tile of the same bundle writes before reading;
-//     one barrier per tile plus one per bundle keeps the update exact;
 //   * groups are independent, so a launch fills the SMs with as many groups
 //     as the caller stacks (the engine stacks every plan of a round).
-// Built with --fmad=false: this kernel has no products, but kernels that
-// join this file later will, and contraction breaks host parity there.
+// Built with --fmad=false, as every source of the library is: this kernel
+// has no products, but fused_rows.cu and score.cu do, and contraction
+// breaks host parity there.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "cover_dp.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int PER_THREAD = 4;
-constexpr long long TILE = static_cast<long long>(THREADS) * PER_THREAD;
+using kubepacs::kThreads;
 
-__global__ void __launch_bounds__(THREADS)
+struct FlatBundles {
+  const long long* p;
+  const double* c;
+  __device__ long long pods(long long b) const { return p[b]; }
+  __device__ double cost(long long b) const { return c[b]; }
+};
+
+__global__ void __launch_bounds__(kThreads)
 cover_dp_kernel(const long long* __restrict__ pods,
                 const double* __restrict__ costs,
                 const long long* __restrict__ b_off,
@@ -62,53 +55,16 @@ cover_dp_kernel(const long long* __restrict__ pods,
   const long long T = targets[g];
   const long long width = T + 1;
   const long long b0 = b_off[g];
-  const long long nb = b_off[g + 1] - b0;
   double* gl_row = dp_out + dp_off[g];
   const bool in_smem = width * 8 <= smem_bytes;
   double* row = in_smem ? smem_row : gl_row;
-  unsigned char* bits = bits_out ? bits_out + bits_off[g] : nullptr;
 
-  for (long long j = tid; j < width; j += THREADS) {
-    row[j] = j == 0 ? 0.0 : CUDART_INF;
-  }
-  __syncthreads();
-
-  for (long long b = 0; b < nb; ++b) {
-    const double cb = costs[b0 + b];
-    unsigned char* brow = bits ? bits + b * width : nullptr;
-    if (!isfinite(cb)) {             // uniform across the CTA: no barrier
-      if (brow) {
-        for (long long j = tid; j < width; j += THREADS) brow[j] = 0;
-      }
-      continue;
-    }
-    const long long pb = pods[b0 + b];
-    for (long long hi = T; hi >= 1; hi -= TILE) {
-      double next[PER_THREAD];
-#pragma unroll
-      for (int k = 0; k < PER_THREAD; ++k) {
-        const long long j = hi - static_cast<long long>(k) * THREADS - tid;
-        if (j >= 1) {
-          const double d = row[j];
-          const double c = j >= pb ? row[j - pb] + cb : cb;
-          const bool take = c < d;
-          next[k] = take ? c : d;
-          if (brow) brow[j] = take;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < PER_THREAD; ++k) {
-        const long long j = hi - static_cast<long long>(k) * THREADS - tid;
-        if (j >= 1) row[j] = next[k];
-      }
-    }
-    if (brow && tid == 0) brow[0] = 0;
-    __syncthreads();
-  }
+  kubepacs::cover_dp_block(FlatBundles{pods + b0, costs + b0},
+                           b_off[g + 1] - b0, T, row,
+                           bits_out ? bits_out + bits_off[g] : nullptr);
 
   if (in_smem) {
-    for (long long j = tid; j < width; j += THREADS) gl_row[j] = row[j];
+    for (long long j = tid; j < width; j += kThreads) gl_row[j] = row[j];
   }
 }
 
@@ -130,7 +86,7 @@ extern "C" int cover_dp_launch(const long long* pods, const double* costs,
       cover_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cover_dp_kernel<<<n_groups, THREADS, smem_bytes,
+  cover_dp_kernel<<<n_groups, kThreads, smem_bytes,
                     static_cast<cudaStream_t>(stream)>>>(
       pods, costs, b_off, targets, dp_off, bits_off, dp_out, bits_out,
       smem_bytes);
