@@ -5,11 +5,13 @@ per source, all started together) and linked into one shared library in
 ``build/kernels/`` of the checkout, at first use.  The library's name holds
 a hash of every source and header plus the flags, so an edit rebuilds it.
 It has a plain C interface and is loaded with ``ctypes``; each kernel's
-wrapper (``cover_dp``, ``fused_rows``, ``score``) takes its launch function
-from :func:`library`.
+wrapper (``cover_dp``, ``fused_rows``, ``score``, ``flash_attention_cuda``,
+``selective_scan_cuda``) takes its launch function from :func:`library`.
 
 ``--fmad=false`` is a flag of every source: the fused row solver and the
-score take products whose rounding must match the host's.
+score take products whose rounding must match the host's.  The two
+sequence kernels are held to tolerances, not bits; the attention kernel
+asks for its inner-product FMAs explicitly (``fmaf``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ LAUNCH_ARGTYPES = {
     "fused_rows_launch": ([_P] * 5 + [_L, _L] + [_P] * 3 + [_L] * 4
                           + [_P] * 7 + [_I, _I, _P]),
     "score_launch": [_P] * 6 + [_I, _L, _P],
+    "flash_attention_launch": [_P] * 5 + [_I] * 10 + [_P],
+    "mamba_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 
