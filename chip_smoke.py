@@ -5,7 +5,9 @@ Drives the port's decision plane (``src/repro_torch``) on the card at the
 system's real sizes and holds every result to the host:
 
 1. prints the card (``nvidia-smi``) and builds the CUDA library from every
-   ``src/repro_torch/csrc/*.cu`` (``cover_dp``, ``fused_rows``, ``score``);
+   ``src/repro_torch/csrc/*.cu`` (``cover_dp``, ``fused_rows``, ``score``,
+   ``flash_attention``, ``mamba_scan``); counts the HGMMA (``wgmma``)
+   instructions of each bf16 attention kernel (``cuobjdump -sass``);
 2. holds the cover-DP kernel to its plain torch version on the card and to
    the host NumPy oracle — dp bytes and bits exactly — on the
    ``_run_pallas_check`` case, a ragged stack of 300 groups with targets up
@@ -18,23 +20,28 @@ system's real sizes and holds every result to the host:
    100 items x 1000 pods and 250 items x 5000 pods, equal to NumPy's;
 5. the fused plane's kernels at its main-path shapes: ``fused_rows``
    against ``fused_rows_plain`` (counts and status bitwise) on the D x G
-   prescan stack of ``provision(5000)`` and a golden-round stack of the
-   250 x 5000 tick, ``score`` against ``score_plain`` (bitwise); times the
-   kernels, the plain versions and, for ``score``, one ``torch.matmul``;
+   prescan stack of ``provision(5000)``, a golden round of
+   ``provision(5000)`` (one row at the full catalog's width) and a
+   golden-round stack of the 250 x 5000 tick, ``score`` against
+   ``score_plain`` (bitwise); times the kernels, the plain versions and,
+   for ``score``, one ``torch.matmul``;
 6. ``provision()`` at 1000 and 5000 pods and both fleet ticks through
    ``torch:fused``, each equal to the NumPy decision with no fallback
    solve, at least one verification solve, and ``fused_rows`` and
-   ``score`` launched; walls of ``torch:fused``, ``torch`` and ``numpy``
-   and the peak device memory;
+   ``score`` launched, the ``fused_rows`` launches split by stack shape;
+   walls of ``torch:fused``, ``torch`` and ``numpy`` and the peak device
+   memory;
 7. where the time of one fused batch (the 250 x 5000 tick) goes: host
    replay, the sampled NumPy verification, upload, kernels, readback;
 8. the serving path's kernels against their plain torch versions on the
    card: ``flash_attention`` (``o`` and ``lse``) over the kernel tests'
-   shapes in float32 and bfloat16, masked, non-causal and ragged cases and
-   the internlm2-1.8b prefill shape; ``mamba_scan`` (``y`` and
-   ``h_final``) over the kernel tests' shapes, with an initial state, and
-   at the falcon-mamba-7b prefill shape; times each kernel, its plain
-   version and, for attention, ``scaled_dot_product_attention``;
+   shapes, masked and non-causal cases in float32 and bfloat16, a ragged
+   float32 case, bfloat16 causal prefills at every config head dim and the
+   internlm2-1.8b prefill shape; ``mamba_scan`` (``y`` and ``h_final``)
+   over the kernel tests' shapes, with an initial state, and at the
+   falcon-mamba-7b prefill shape; times each kernel, its plain version
+   and, for attention, ``scaled_dot_product_attention`` in turns with the
+   kernel (kernel, SDPA, SDPA, kernel), with TFLOP/s and share of bound;
 9. ``launch.serve.serve`` at full width and depth: internlm2-1.8b (16
    requests, batch 8, prompt 1024, 32 new tokens, then 5 requests in
    batches of 4 to drive a padded partial batch) and falcon-mamba-7b (8
@@ -48,9 +55,11 @@ system's real sizes and holds every result to the host:
    tokens equal); and, reported only, the full-depth bfloat16 prefill's
    largest logit difference between the two.
 
-Every phase that fails raises, and the script exits non-zero.  The line
-before the last is the kernel record (times, launches on the main paths,
-bounds); the last line is ``{"ok": true, "device": {...}}``.
+Every phase that fails raises, and the script exits non-zero.  Kernel
+times are device times (``cuda_ms``: CUDA events around back-to-back
+calls queued behind a sleep kernel).  The line before the last is the
+kernel record (times, launches on the main paths, bounds); the last line
+is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card and ``nvcc`` (``CUDA_HOME``, default ``/usr/local/cuda``).
@@ -58,9 +67,11 @@ with one CUDA card and ``nvcc`` (``CUDA_HOME``, default ``/usr/local/cuda``).
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +90,9 @@ BF16_TC_OPS_PER_S = 989e12
 #: (CUDA programming guide, compute capability 9.0) x 1.98 GHz boost clock
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 TOLERANCE = 0.01
+#: SM clock cycles a second, to size the sleep kernel of ``cuda_ms`` (an
+#: upper estimate: the sleep only has to outlast the host's queueing)
+SLEEP_CYCLES_PER_S = 2e9
 
 
 def check(cond: bool, what: str) -> None:
@@ -95,19 +109,24 @@ def fake_timer() -> float:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Device time of one call of ``fn``: one pair of CUDA events around
+    ``reps`` back-to-back calls after a warm-up call, over ``reps``.  A
+    sleep kernel holds the stream while the host queues the calls, so the
+    wrapper's host work between launches is not counted as device time (a
+    call that synchronises inside still waits for its own work)."""
+    t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0     # an upper estimate: a warm-up
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * reps * host_s, 0.05) * SLEEP_CYCLES_PER_S))
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def wall_s(fn, reps: int) -> float:
@@ -145,6 +164,34 @@ def bound(groups):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP64_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hgmma_counts(lib):
+    """``({head width: HGMMA instructions}, sample lines)`` of each bf16
+    attention kernel variant in the built library (``cuobjdump -sass``):
+    the samples are the first S = Q K^T and the first P V instruction of
+    the width-128 variant (the internlm2 prefill's); None where the toolkit
+    has no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, samples, fn = {}, {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"flash_wgmma_kernelILi(\d+)E", ln)
+            fn = int(m.group(1)) if m else None
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and "HGMMA" in ln:
+            counts[fn] += 1
+            if fn == 128:
+                kind = "P V" if "tnspB" in ln else "Q K^T"
+                samples.setdefault(kind, " ".join(ln.split("/*")[1].split(
+                    "*/")[1].split()).rstrip(" ;"))
+    return counts, samples
 
 
 def max_abs_err(a, b) -> float:
@@ -200,6 +247,18 @@ def run(dev) -> dict:
              if ln.startswith("[") or "registers" in ln or "spill" in ln]
     print(f"phase1 build: {lib.name} in {build_s:.3f} s; " + " | ".join(ptxas))
     cuda_lib.library()
+    sass = hgmma_counts(lib)
+    if sass is None:
+        print("phase1 sass: no cuobjdump in the toolkit; HGMMA not counted")
+    else:
+        hgmma, samples = sass
+        check(len(hgmma) == 4 and all(hgmma.values()),
+              f"bf16 attention kernels without HGMMA: {hgmma}")
+        print("phase1 sass: HGMMA instructions of the bf16 attention kernel, "
+              "by head width: " + ", ".join(
+                  f"{w}: {n}" for w, n in sorted(hgmma.items()))
+              + "; width 128: " + "; ".join(
+                  f"{k}: {v}" for k, v in sorted(samples.items())))
 
     # -- phase 2: kernel vs plain version vs host oracle -------------------
     def hold(groups, label):
@@ -469,8 +528,11 @@ def run_fused(dev, catalog, big, ticks) -> list:
                        market=t_market, timer=fake_timer, backend=cap_t)
     budget = cap_p.bits_budget
     rows_rec = None
+    # rows[0] is the prescan stack, rows[1] the bracket's first two probes,
+    # rows[2:] the golden rounds (one row per decision)
     for name, (dm, coefs, actives, reqs, coarse, max_req) in (
             ("prescan of provision 5000", cap_p.rows[0]),
+            ("golden round of provision 5000", cap_p.rows[2]),
             (f"golden round of tick {t_name}", cap_t.rows[2])):
         def kernel():
             return fr.fused_rows(dm, coefs, actives, reqs, coarse, max_req,
@@ -523,15 +585,32 @@ def run_fused(dev, catalog, big, ticks) -> list:
     # -- phase 6: the main path through torch:fused --------------------------
     n_rows = n_score = 0
     torch.cuda.reset_peak_memory_stats(dev)
+    stacks = collections.Counter()      # (rows, N) of each fused_rows stack
+    rows_fn = FusedTorchBackend._rows
+
+    def recorded_rows(self, dm, coefs, *args):
+        stacks[tuple(coefs.shape)] += 1
+        return rows_fn(self, dm, coefs, *args)
 
     def counted(drive):
         nonlocal n_rows, n_score
         fr.fused_rows.launches = sc.score.launches = 0
-        out = drive()
+        stacks.clear()
+        FusedTorchBackend._rows = recorded_rows
+        try:
+            out = drive()
+        finally:
+            FusedTorchBackend._rows = rows_fn
         got = (fr.fused_rows.launches, sc.score.launches)
+        check(sum(stacks.values()) == got[0], f"fused_rows stacks {stacks} "
+              f"against {got[0]} launches")
         n_rows += got[0]
         n_score += got[1]
         return out, got
+
+    def split():
+        return ", ".join(f"{n} x (rows {r}, N {c})"
+                         for (r, c), n in sorted(stacks.items()))
 
     def fused_ok(be, what, got):
         info = be.device_cache_info()
@@ -547,6 +626,7 @@ def run_fused(dev, catalog, big, ticks) -> list:
                  for spec in ("torch:fused", "torch", "numpy")}
         d_f, got = counted(lambda: provs["torch:fused"].provision(req,
                                                                   catalog))
+        prov_split = split()
         d_n = provs["numpy"].provision(req, catalog)
         check(d_f == d_n and d_f.pool.as_dict() == d_n.pool.as_dict()
               and d_f.alpha == d_n.alpha and d_f.trace == d_n.trace,
@@ -556,7 +636,8 @@ def run_fused(dev, catalog, big, ticks) -> list:
                  for spec, p in provs.items()}
         print(f"phase6 provision pods={pods} torch:fused: alpha="
               f"{d_f.alpha!r} nodes={sum(d_f.pool.counts)} launches "
-              f"fused_rows={got[0]} score={got[1]}; wall " + " ".join(
+              f"fused_rows={got[0]} ({prov_split}) score={got[1]}; wall "
+              + " ".join(
                   f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
               + ": equal to NumPy")
 
@@ -572,6 +653,7 @@ def run_fused(dev, catalog, big, ticks) -> list:
     for items, market, demands, name in ticks:
         (dec_f, be), got = counted(
             lambda: tick(items, market, demands, "torch:fused"))
+        tick_split = split()
         dec_n, _ = tick(items, market, demands, NumpyBackend())
         check(dec_f == dec_n and all(
             a.pool.as_dict() == b.pool.as_dict() for a, b in zip(dec_f, dec_n)),
@@ -581,7 +663,8 @@ def run_fused(dev, catalog, big, ticks) -> list:
                               3)
                  for spec in ("torch:fused", "torch", "numpy")}
         print(f"phase6 fleet tick {name} x {len(demands)} decisions "
-              f"torch:fused: launches fused_rows={got[0]} score={got[1]}; "
+              f"torch:fused: launches fused_rows={got[0]} ({tick_split}) "
+              f"score={got[1]}; "
               "wall " + " ".join(f"{k} {v * 1e3:.3f} ms"
                                  for k, v in walls.items())
               + ": equal to NumPy")
@@ -677,20 +760,29 @@ ATTN_SHAPES = [(1, 32, 32, 4, 4, 16, 8, 8), (2, 64, 64, 8, 2, 32, 16, 32),
                (1, 128, 128, 6, 6, 64, 64, 32), (2, 48, 48, 4, 1, 16, 16, 16)]
 #: (b, s, di, n) of tests/test_kernels.py
 MAMBA_SHAPES = [(1, 32, 16, 4), (2, 64, 32, 8), (2, 128, 64, 16)]
+#: bfloat16 head dims of the configs with attention (64 internvl2 and
+#: musicgen, 80 stablelm, 112 kimi, 128 the rest), held at Sq = Skv = 1000
+BF16_HEADS = (64, 80, 112, 128)
 #: the kernels' bars (tests/test_kernels.py): attention, scan
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
-def attn_bound(b, sq, skv, h, kv, hd, elem, causal=True, q_offset=0):
-    """q, k, v read and o, lse written once over HBM; or 4 hd flops per
-    valid (query, key) pair over the dense bf16 tensor-core rate."""
-    nbytes = elem * (2 * b * sq * h * hd + 2 * b * skv * kv * hd) \
-        + 4 * b * sq * h
+def attn_flops(b, sq, skv, h, kv, hd, causal=True, q_offset=0):
+    """4 hd flops (S = Q K^T and P V) per valid (query, key) pair."""
     qpos = q_offset + np.arange(sq)
     pairs = int(np.minimum(qpos + 1, skv).sum()) if causal else sq * skv
+    return 4 * hd * pairs * b * h
+
+
+def attn_bound(b, sq, skv, h, kv, hd, elem, causal=True, q_offset=0):
+    """q, k, v read and o, lse written once over HBM; or
+    :func:`attn_flops` over the dense bf16 tensor-core rate."""
+    nbytes = elem * (2 * b * sq * h * hd + 2 * b * skv * kv * hd) \
+        + 4 * b * sq * h
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * hd * pairs * b * h / BF16_TC_OPS_PER_S * 1e3
+    t_ops = attn_flops(b, sq, skv, h, kv, hd, causal, q_offset) \
+        / BF16_TC_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -742,7 +834,8 @@ def run_serving(dev) -> list:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (VARIANTS,
+                                                     flash_attention_cuda)
     from repro_torch.kernels.mamba_scan import selective_scan_cuda
     from repro_torch.launch.serve import serve
     from repro_torch.models import count_params, init_params
@@ -791,34 +884,53 @@ def run_serving(dev) -> list:
                                  *qkv(b, sq, skv, h, kv, hd, dtype), qc, kc,
                                  causal=True)
             worst = max(worst, e_o, e_l)
-    q, k, v = qkv(2, 32, 64, 4, 2, 16, torch.float32)
-    for kw in ({"causal": True, "q_offset": 32, "kv_len": 56},
-               {"causal": False}, {"causal": False, "kv_len": 0}):
-        worst = max(worst, *hold_attn(f"masked {kw}", 2e-5, q, k, v, 16, 16,
-                                      **kw))
+        q, k, v = qkv(2, 32, 64, 4, 2, 16, dtype)
+        for kw in ({"causal": True, "q_offset": 32, "kv_len": 56},
+                   {"causal": True, "q_offset": 8, "kv_len": 24},
+                   {"causal": False}, {"causal": False, "kv_len": 0}):
+            worst = max(worst, *hold_attn(f"masked {kw} {dname}",
+                                          ATTN_TOL[dname], q, k, v, 16, 16,
+                                          **kw))
     q, k, v = qkv(1, 1000, 1000, 4, 2, 64, torch.float32)
     o, _ = flash_attention_cuda(q, k, v, causal=True)
     e_r = err(o, ref.attention_naive(q, k, v, causal=True))
     check(e_r <= 2e-5, f"flash_attention ragged S=1000: err {e_r}")
+    worst_hd = 0.0
+    for hd in BF16_HEADS:
+        worst_hd = max(worst_hd, *hold_attn(
+            f"bf16 causal prefill hd {hd}", ATTN_TOL["bfloat16"],
+            *qkv(2, 1000, 1000, 4, 2, hd, torch.bfloat16), 1000, 1000,
+            causal=True))
     print(f"phase8 flash_attention: test shapes x float32/bfloat16, masked "
-          f"and non-causal cases within the bars (largest err {worst:.3e}); "
-          f"ragged Sq=Skv=1000 vs attention_naive err {e_r:.3e}")
+          f"and non-causal cases in both dtypes within the bars (largest err "
+          f"{worst:.3e}); ragged Sq=Skv=1000 float32 vs attention_naive err "
+          f"{e_r:.3e}; bfloat16 causal Sq=Skv=1000 at hd {BF16_HEADS} vs the "
+          f"plain version: largest err {worst_hd:.3e}")
 
     shape = (8, 1024, 1024, 16, 8, 128)           # internlm2-1.8b prefill
     q, k, v = qkv(*shape, torch.bfloat16)
     a_err, a_lse = hold_attn("internlm2 prefill", ATTN_TOL["bfloat16"], q, k,
                              v, 1024, 1024, causal=True)
-    a_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v), 20)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    timed = {"kernel": lambda: flash_attention_cuda(q, k, v),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True)}
+    turns = {"kernel": [], "sdpa": []}
+    for who in ("kernel", "sdpa", "sdpa", "kernel"):
+        turns[who].append(cuda_ms(torch, timed[who], 20))
+    a_ms, al_ms = median(turns["kernel"]), median(turns["sdpa"])
     ap_ms = cuda_ms(torch, lambda: ref.flash_fwd_chunked(
         q, k, v, q_chunk=1024, kv_chunk=1024), 5)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    al_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
     ab_ms, ab_by = attn_bound(*shape, elem=2)
-    print(f"phase8 flash_attention at the internlm2-1.8b prefill (B 8, S 1024,"
-          f" H 16, KV 8, hd 128, bf16): o err {a_err:.3e} lse err "
-          f"{a_lse:.3e}; kernel {a_ms:.4f} ms plain {ap_ms:.4f} ms "
-          f"scaled_dot_product_attention {al_ms:.4f} ms bound {ab_ms:.6f} ms "
+    tflop = attn_flops(*shape) / 1e12
+    print(f"phase8 flash_attention ({VARIANTS[q.dtype]}) at the internlm2-1.8b"
+          f" prefill (B 8, S 1024, H 16, KV 8, hd 128, bf16): o err "
+          f"{a_err:.3e} lse err {a_lse:.3e}; kernel {a_ms:.4f} ms (turns "
+          f"{turns['kernel']}) {tflop / a_ms * 1e3:.1f} TFLOP/s "
+          f"{ab_ms / a_ms:.2%} of bound; scaled_dot_product_attention "
+          f"{al_ms:.4f} ms (turns {turns['sdpa']}) {tflop / al_ms * 1e3:.1f} "
+          f"TFLOP/s {ab_ms / al_ms:.2%} of bound; kernel / SDPA "
+          f"{a_ms / al_ms:.3f}; plain {ap_ms:.4f} ms; bound {ab_ms:.6f} ms "
           f"({ab_by})")
     del q, k, v, qt, kt, vt
 
@@ -925,10 +1037,14 @@ def run_serving(dev) -> list:
                          ("decode step", lambda: decode_fn(
                              params, caches, nxt, S + 1, cfg=cfg))):
             wall, busy, top = traced(torch, fn)
+            ours = [(k, v) for k, v in top
+                    if "flash_" in k or "scan_kernel" in k]
             print(f"phase9 trace {label} {what} (B {B}, S {S}): traced wall "
                   f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
                   f"{1 - busy / wall:.4f}); by kernel: " + "; ".join(
-                      f"{k} {v:.3f} ms" for k, v in top[:6]))
+                      f"{k} {v:.3f} ms" for k, v in top[:6])
+                  + "; the port's kernels: " + ("; ".join(
+                      f"{k} {v:.3f} ms" for k, v in ours) or "none"))
 
     cfg = get_config("internlm2-1.8b")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1014,6 +1130,7 @@ def run_serving(dev) -> list:
 
     return [
         {"name": "flash_attention", "route": "cuda",
+         "variant": VARIANTS[torch.bfloat16],
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:26 "
                      "(_flash_kernel; pallas_call at :100)",

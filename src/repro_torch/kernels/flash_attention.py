@@ -4,8 +4,10 @@
 ``q_offset`` and ``kv_len`` masking — in one launch of the hand-written
 CUDA kernel ``csrc/flash_attention.cu`` (one CTA per query tile and head,
 an online softmax in float32 across K/V tiles; see the source for the
-design).  It returns ``(o, lse)`` as :func:`ref.flash_fwd_chunked` does,
-with ``lse`` laid out ``(B,Sq,KV,G)``, and takes ragged ``Sq`` and ``Skv``.
+design): bfloat16 inputs on the tensor cores (``wgmma`` on K/V tiles that
+TMA loads), float32 inputs as IEEE FMAs.  It returns ``(o, lse)`` as
+:func:`ref.flash_fwd_chunked` does, with ``lse`` laid out ``(B,Sq,KV,G)``,
+and takes ragged ``Sq`` and ``Skv``.
 
 On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
 it runs the plain version :func:`ref.flash_fwd_chunked`, which is also what
@@ -23,8 +25,12 @@ from . import ref
 
 #: dtype flags of the launch function
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's path for each dtype (named in chip_smoke.py's record)
+VARIANTS = {torch.float32: "ieee-fma", torch.bfloat16: "wgmma"}
 #: widest head the kernel takes (its shared-memory tiles are sized by it)
 MAX_HEAD_DIM = 256
+#: bfloat16 heads must be a multiple of this: TMA moves rows of 16 bytes
+BF16_HEAD_MULTIPLE = 8
 
 
 def check_cuda(name: str, tensors, dtypes) -> torch.device:
@@ -45,6 +51,29 @@ def check_cuda(name: str, tensors, dtypes) -> torch.device:
     return dev
 
 
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raises unless the kernel takes q ``(B,Sq,H,hd)`` and k, v
+    ``(B,Skv,KV,hd)``: one dtype, float32 with ``hd <= 256`` or bfloat16
+    with ``hd`` a multiple of 8 up to 256 and every tensor's data 16-byte
+    aligned (the tensor-core path loads them by TMA)."""
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype} differ")
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd
+            or h % kvh or not 0 < hd <= MAX_HEAD_DIM
+            or (q.dtype == torch.bfloat16 and hd % BF16_HEAD_MULTIPLE)):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} not taken")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 inputs must start on a "
+                         "16-byte boundary")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, q_offset: int = 0,
                          kv_len: Optional[int] = None,
@@ -52,22 +81,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` of q ``(B,Sq,H,hd)`` over k, v ``(B,Skv,KV,hd)``.
 
-    CUDA: one launch, counted in ``flash_attention_cuda.launches``; float32
-    or bfloat16 inputs, ``hd <= 256``.  CPU: :func:`ref.flash_fwd_chunked`
-    with ``q_chunk`` and ``kv_chunk`` (which the kernel does not need)."""
+    CUDA: one launch, counted in ``flash_attention_cuda.launches``, of
+    inputs that :func:`check_inputs` passes.  CPU:
+    :func:`ref.flash_fwd_chunked` with ``q_chunk`` and ``kv_chunk`` (which
+    the kernel does not need)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.flash_fwd_chunked(q, k, v, causal=causal,
                                      q_offset=q_offset, kv_len=kv_len,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")
+    check_inputs(q, k, v)
     dev = check_cuda("flash_attention", (q, k, v), (q.dtype,) * 3)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd
-            or h % kvh or hd > MAX_HEAD_DIM):
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} not taken")
     kv_lim = skv if kv_len is None else max(0, min(int(kv_len), skv))
     o = torch.empty_like(q)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=dev)

@@ -20,9 +20,11 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.mamba_scan import selective_scan_pallas
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core import cuda_lib
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (check_inputs,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.mamba_scan import selective_scan_cuda
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -113,6 +115,121 @@ def test_flash_lse_vs_reference_chunked(kwargs):
     assert lse_g.shape == lse_w.shape == (2, 32, 2, 4)
     np.testing.assert_allclose(_np(o_g), _np(o_w), atol=2e-5)
     np.testing.assert_allclose(_np(lse_g), _np(lse_w), atol=2e-5)
+
+
+#: the bf16 kernel's tiles: 64 query rows (wgmma's M) and 64-key K/V tiles
+KERNEL_TILE = 64
+KERNEL_TILE_SHAPES = [
+    # (b, sq, skv, h, kv, hd): two or three tiles a side
+    (1, 128, 128, 4, 2, 64),        # GQA 2:1, a config head dim
+    (2, 192, 192, 2, 1, 32),        # MQA
+    (1, 128, 128, 2, 2, 128),       # MHA, internlm2's head dim
+]
+
+
+@pytest.mark.parametrize("shape", KERNEL_TILE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_at_kernel_tiles_vs_pallas_interpret(shape, dtype):
+    """The plain version at the CUDA kernel's tile sizes (q 64, kv 64), as
+    it is held to the kernel on the card: rounding p to bf16 per 64-key tile
+    stays within the bars of the Pallas kernel in interpret mode (o) and of
+    the reference's chunked forward (lse)."""
+    b, sq, skv, h, kv, hd = shape
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(np.random.default_rng(10), b, sq,
+                                        skv, h, kv, hd, dtype)
+    want = flash_attention_pallas(qj, kj, vj, causal=True,
+                                  q_chunk=KERNEL_TILE, kv_chunk=KERNEL_TILE,
+                                  interpret=True)
+    _, lse_w = jref.flash_fwd_chunked(qj, kj, vj, causal=True,
+                                      q_chunk=KERNEL_TILE,
+                                      kv_chunk=KERNEL_TILE)
+    got, lse = ref.flash_fwd_chunked(qt, kt, vt, causal=True,
+                                     q_chunk=KERNEL_TILE,
+                                     kv_chunk=KERNEL_TILE)
+    np.testing.assert_allclose(_np(got), _np(want), atol=ATTN_TOL[dtype])
+    np.testing.assert_allclose(_np(lse), _np(lse_w), atol=ATTN_TOL[dtype])
+
+
+def _blank(b, sq, skv, h, kv, hd, dtype, device="cpu"):
+    return (torch.zeros((b, sq, h, hd), dtype=dtype, device=device),
+            torch.zeros((b, skv, kv, hd), dtype=dtype, device=device),
+            torch.zeros((b, skv, kv, hd), dtype=dtype, device=device))
+
+
+def _attention_head_dims():
+    """``(arch, H, KV, hd)`` of every config, full and smoke, with an
+    attention layer (falcon-mamba-7b has none)."""
+    out = []
+    for arch in list_archs():
+        for smoke in (False, True):
+            cfg = get_config(arch, smoke=smoke)
+            if any(spec.mixer == "attn" for spec in cfg.layout):
+                out.append((arch, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.resolved_head_dim))
+    return out
+
+
+@pytest.mark.parametrize("hd", [8, 16, 24, 32, 64, 80, 112, 128, 136, 256])
+def test_check_inputs_takes_bf16_head_dims(hd):
+    """bf16: every multiple of 8 up to 256 (TMA rows of 16-byte
+    multiples), however many 64-column boxes it spans."""
+    check_inputs(*_blank(2, 100, 70, 4, 2, hd, torch.bfloat16))
+
+
+def test_check_inputs_takes_every_config_head_dim():
+    dims = _attention_head_dims()
+    assert {hd for *_, hd in dims} >= {64, 80, 112, 128}
+    assert len({arch for arch, *_ in dims}) == 9
+    for _, h, kv, hd in dims:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_inputs(*_blank(1, 16, 16, h, kv, hd, dtype))
+
+
+@pytest.mark.parametrize("hd", [12, 100, 256])
+def test_check_inputs_takes_f32_head_dims_up_to_256(hd):
+    check_inputs(*_blank(1, 16, 32, 2, 1, hd, torch.float32))
+
+
+def _misaligned_bf16():
+    q, k, v = _blank(1, 16, 16, 2, 1, 16, torch.bfloat16)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+    return flat[1:].view(q.shape), k, v
+
+
+@pytest.mark.parametrize("case, exc", [
+    ("bf16 hd 12", ValueError), ("bf16 hd 260", ValueError),
+    ("f32 hd 264", ValueError), ("float16", TypeError),
+    ("mixed dtypes", TypeError), ("k, v shapes differ", ValueError),
+    ("heads not a multiple of kv heads", ValueError),
+    ("bf16 data off a 16-byte boundary", ValueError)])
+def test_check_inputs_raises_on_what_the_kernel_does_not_take(case, exc):
+    inputs = {
+        "bf16 hd 12": lambda: _blank(1, 8, 8, 2, 1, 12, torch.bfloat16),
+        "bf16 hd 260": lambda: _blank(1, 8, 8, 2, 1, 260, torch.bfloat16),
+        "f32 hd 264": lambda: _blank(1, 8, 8, 2, 1, 264, torch.float32),
+        "float16": lambda: _blank(1, 8, 8, 2, 1, 16, torch.float16),
+        "mixed dtypes": lambda: _blank(1, 8, 8, 2, 1, 16, torch.bfloat16)[:2]
+        + (torch.zeros((1, 8, 1, 16)),),
+        "k, v shapes differ": lambda: _blank(1, 8, 8, 2, 1, 16,
+                                             torch.float32)[:2]
+        + (torch.zeros((1, 9, 1, 16)),),
+        "heads not a multiple of kv heads": lambda: _blank(
+            1, 8, 8, 3, 2, 16, torch.float32),
+        "bf16 data off a 16-byte boundary": _misaligned_bf16,
+    }[case]()
+    with pytest.raises(exc):
+        check_inputs(*inputs)
+
+
+@pytest.mark.parametrize("hd, match", [(12, "not taken"),
+                                       (16, "CUDA device")])
+def test_cuda_branch_checks_inputs_first(hd, match):
+    """Off the CPU the wrapper calls :func:`check_inputs` before anything
+    else: a bf16 head it does not take raises as such, a taken one reaches
+    the device check (meta tensors stand in for a card)."""
+    q, k, v = _blank(1, 8, 8, 2, 1, hd, torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match=match):
+        flash_attention_cuda(q, k, v)
 
 
 def test_flash_empty_rows_are_zero_with_minus_inf_lse():
