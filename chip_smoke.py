@@ -21,25 +21,31 @@ system's real sizes and holds every result to the host:
 5. the fused plane's kernels at its main-path shapes: ``fused_rows``
    against ``fused_rows_plain`` (counts and status bitwise) on the D x G
    prescan stack of ``provision(5000)``, a golden round of
-   ``provision(5000)`` (one row at the full catalog's width) and a
-   golden-round stack of the 250 x 5000 tick, ``score`` against
-   ``score_plain`` (bitwise); times the kernels, the plain versions and,
-   for ``score``, one ``torch.matmul``;
+   ``provision(5000)`` (one row at the full catalog's width), a
+   golden-round stack of the 250 x 5000 tick and an adversarial stack at
+   the full catalog's width (``stress_rows``: ties, -0.0, residual 1 and
+   capacity, gcd mode), each row's path (prefix or full sort) equal to
+   ``prefix_plan``'s and both paths taken, with the kernel's clock64
+   split by stage; ``score`` against ``score_plain`` (bitwise); times the
+   kernels, the plain versions and, for ``score``, one ``torch.matmul``;
 6. ``provision()`` at 1000 and 5000 pods and both fleet ticks through
    ``torch:fused``, each equal to the NumPy decision with no fallback
    solve, at least one verification solve, and ``fused_rows`` and
    ``score`` launched, the ``fused_rows`` launches split by stack shape;
-   walls of ``torch:fused``, ``torch`` and ``numpy`` and the peak device
-   memory;
-7. where the time of one fused batch (the 250 x 5000 tick) goes: host
-   replay, the sampled NumPy verification, upload, kernels, readback;
+   walls of ``torch:fused``, ``torch`` and ``numpy`` (for the ticks with
+   each call's garbage-collection time and new device memory segments)
+   and the peak device memory;
+7. where the time of one fused batch (the 250 x 5000 tick) goes, the
+   median of five on fresh backends: host replay, the sampled NumPy
+   verification, upload, kernels, readback, with the same host costs;
 8. the serving path's kernels against their plain torch versions on the
    card: ``flash_attention`` (``o`` and ``lse``) over the kernel tests'
    shapes, masked and non-causal cases in float32 and bfloat16, a ragged
    float32 case, bfloat16 causal prefills at every config head dim and the
    internlm2-1.8b prefill shape; ``mamba_scan`` (``y`` and ``h_final``)
-   over the kernel tests' shapes, with an initial state, and at the
-   falcon-mamba-7b prefill shape; times each kernel, its plain version
+   over the kernel tests' shapes, with an initial state, at every N from
+   1 to 16 with S = 1000, and at the falcon-mamba-7b prefill shape; times
+   each kernel, its plain version
    and, for attention, ``scaled_dot_product_attention`` in turns with the
    kernel (kernel, SDPA, SDPA, kernel), with TFLOP/s and share of bound;
 9. ``launch.serve.serve`` at full width and depth: internlm2-1.8b (16
@@ -68,6 +74,7 @@ with one CUDA card and ``nvcc`` (``CUDA_HOME``, default ``/usr/local/cuda``).
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import os
@@ -138,6 +145,30 @@ def wall_s(fn, reps: int) -> float:
     return median(times)
 
 
+def host_cost(fn, segments):
+    """``(wall s, ms in garbage collection, new device memory segments)`` of
+    one call of ``fn``: costs that move a wall with no change to its code
+    (``segments()``: the caching allocator's cumulative ``cudaMalloc``
+    count, each of which may stall the host)."""
+    in_gc, t_gc = [0.0], [0.0]
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            in_gc[0] = time.perf_counter()
+        else:
+            t_gc[0] += (time.perf_counter() - in_gc[0]) * 1e3
+
+    segs = segments()
+    gc.callbacks.append(on_gc)
+    try:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(on_gc)
+    return wall, t_gc[0], segments() - segs
+
+
 def random_groups(rng, n, t_max, b_max):
     """Cover-DP groups with +inf costs, pb == 1 and pb > T all present."""
     groups = []
@@ -194,6 +225,32 @@ def hgmma_counts(lib):
     return counts, samples
 
 
+def ptxas_summary(log: str) -> str:
+    """``kernel: registers, spills, shared memory`` of each entry function
+    in ``nvcc -Xptxas -v`` output, with its template arguments."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(?:I(13__nv_bfloat16|f)E)?"
+                          r"(?:ILi(\d+)E)?", m.group(1))
+            name = k.group(1) if k else m.group(1)
+            if k and k.group(2):
+                name += f"<{'bf16' if k.group(2) != 'f' else 'f32'}>"
+            elif k and k.group(3):
+                name += f"<hd {k.group(3)}>"
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{name} {regs.group(1) if regs else '?'} registers, "
+                       f"{spill}, {smem.group(1) if smem else 0} B static "
+                       "smem")
+            name = None
+    return "; ".join(out)
+
+
 def max_abs_err(a, b) -> float:
     a, b = np.asarray(a), np.asarray(b)
     same_inf = np.array_equal(np.isinf(a), np.isinf(b))
@@ -243,9 +300,8 @@ def run(dev) -> dict:
     t0 = time.perf_counter()
     lib, log = cuda_lib.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if ln.startswith("[") or "registers" in ln or "spill" in ln]
-    print(f"phase1 build: {lib.name} in {build_s:.3f} s; " + " | ".join(ptxas))
+    print(f"phase1 build: {lib.name} in {build_s:.3f} s; "
+          + (ptxas_summary(log) or "library already built"))
     cuda_lib.library()
     sass = hgmma_counts(lib)
     if sass is None:
@@ -422,6 +478,7 @@ def run(dev) -> dict:
     record = None
     for name, drive in runs:
         timed = Timed(dev)
+        gc.collect()     # earlier phases' garbage is no part of this run
         t0 = time.perf_counter()
         drive(timed)
         wall = (time.perf_counter() - t0) * 1e3
@@ -479,6 +536,56 @@ def rows_bound(dm, coefs, info):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def stress_rows(market, dev, seed=15):
+    """``(coefs, actives, reqs, coarse, max_req)`` of rows built to stress
+    the prefix selection of ``fused_rows`` at ``market``'s width: every item
+    at one rate (ties, so the full path), residual 1, -0.0 and 0.0
+    coefficients (5%: ties inside the prefix path's first bin; 25%: more
+    zero keys than the prefix holds, the full path), the residual equal to
+    the capacity of a small active set (M = n) and just below it, a
+    gcd-mode row and a plain objective row."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N = market.n
+    st = market.structural
+    pods = market.pods.astype(np.float64)
+    pb = market.pods * market.bound
+    pos = rng.uniform(0.05, 2.0, N)
+    rows = [(0.5 * pods, st, 1), (pos, st, 1)]
+    for share in (0.05, 0.25):
+        c = pos.copy()
+        c[rng.random(N) < share] = -0.0
+        c[rng.random(N) < share / 5] = 0.0
+        rows.append((c, st, 3000))
+    order = np.argsort(np.where(st, pb, np.iinfo(np.int64).max),
+                       kind="stable")        # least pods * bound first
+    small = np.zeros(N, dtype=bool)
+    small[order[np.cumsum(pb[order]) <= 6000]] = True
+    small &= st
+    cap = int(pb[small].sum())
+    rows += [(pos, small, cap), (pos, small, cap - 7), (pos, st, 7000),
+             (market.coefficients(np.array([0.1]))[0], st, 5000)]
+    coefs = torch.from_numpy(np.stack([r[0] for r in rows])).to(dev)
+    actives = torch.from_numpy(np.stack([r[1] for r in rows])).to(dev)
+    reqs = torch.tensor([r[2] for r in rows], dtype=torch.int64, device=dev)
+    return coefs, actives, reqs, (6500, 1_000_000, 4), int(reqs.max())
+
+
+def stage_split(stamps, names, pruned):
+    """The mean clock64 cycles a row spends in each stage over the rows
+    that ran the prune (``pruned``), as ``name cycles (share)``, and the
+    slowest row's total."""
+    d = np.diff(stamps[pruned], axis=1)
+    if not len(d):
+        return "no row ran the prune"
+    mean = d.mean(axis=0)
+    tot = mean.sum()
+    return (", ".join(f"{n} {m:.0f} ({m / tot:.3f})"
+                      for n, m in zip(names, mean))
+            + f"; slowest row {int(d.sum(axis=1).max())} cycles")
+
+
 def score_bound(D, N):
     """Counts and the three market vectors read once, the demands read and
     the scores written once, over HBM; or 6 flops a column over fp64."""
@@ -495,7 +602,7 @@ def run_fused(dev, catalog, big, ticks) -> list:
 
     from repro_torch.core import (FusedTorchBackend, KubePACSProvisioner,
                                   NumpyBackend, Request, SolveBatch,
-                                  make_backend)
+                                  compile_market, make_backend, preprocess)
     from repro_torch.core import backend as bmod
     from repro_torch.core import fused_rows as fr
     from repro_torch.core import score as sc
@@ -528,40 +635,64 @@ def run_fused(dev, catalog, big, ticks) -> list:
                        market=t_market, timer=fake_timer, backend=cap_t)
     budget = cap_p.bits_budget
     rows_rec = None
+    path_rows = collections.Counter()
+    dm5 = cap_p.rows[0][0]
     # rows[0] is the prescan stack, rows[1] the bracket's first two probes,
-    # rows[2:] the golden rounds (one row per decision)
-    for name, (dm, coefs, actives, reqs, coarse, max_req) in (
-            ("prescan of provision 5000", cap_p.rows[0]),
-            ("golden round of provision 5000", cap_p.rows[2]),
-            (f"golden round of tick {t_name}", cap_t.rows[2])):
-        def kernel():
+    # rows[2:] the golden rounds (one row per decision); then the stress rows
+    # at the full catalog's width (no plain time: a reading, not a path)
+    for name, (dm, coefs, actives, reqs, coarse, max_req), timed in (
+            ("prescan of provision 5000", cap_p.rows[0], True),
+            ("golden round of provision 5000", cap_p.rows[2], True),
+            (f"golden round of tick {t_name}", cap_t.rows[2], True),
+            ("adversarial stack", (dm5, *stress_rows(
+                compile_market(preprocess(catalog, req5k)), dev)),
+             False)):
+        def kernel(**out):
             return fr.fused_rows(dm, coefs, actives, reqs, coarse, max_req,
-                                 budget)
+                                 budget, **out)
 
         def plain(info=None):
             return fr.fused_rows_plain(dm, coefs, actives, reqs, coarse,
                                        max_req, info)
 
-        ck, sk = kernel()
+        R = coefs.shape[0]
+        paths = torch.full((R,), 255, dtype=torch.uint8, device=dev)
+        stamps = torch.zeros((R, len(fr.STAGES) + 1), dtype=torch.int64,
+                             device=dev)
+        ck, sk = kernel(paths=paths, stages=stamps)
         info = []
         cp, sp = plain(info)
         torch.cuda.synchronize()
         check(torch.equal(ck, cp) and torch.equal(sk, sp),
               f"fused_rows {name}: kernel != plain version on the card")
+        took = paths.cpu().numpy()
+        plans = fr.prefix_plans(info)
+        check(took.tolist() == [p for _c, p in plans],
+              f"fused_rows {name}: paths {took.tolist()} against the "
+              f"selection's {[p for _c, p in plans]}")
+        path_rows.update(took.tolist())
         err = float((ck - cp).abs().max()) if ck.numel() else 0.0
         k_ms = cuda_ms(torch, kernel, 5)
-        p_ms = cuda_ms(torch, plain, 1)
+        p_ms = cuda_ms(torch, plain, 1) if timed else None
         b_ms, b_by = rows_bound(dm, coefs, info)
         status = sk.cpu().numpy()
-        print(f"phase5 fused_rows at {name}: rows={coefs.shape[0]} "
-              f"N={dm.n_items} B={dm.n_bundles} feasible="
-              f"{int((status == fr.FEASIBLE).sum())} max kept="
-              f"{max(r['kept'] for r in info)} max core="
+        split = stage_split(stamps.cpu().numpy(), fr.STAGES,
+                            took != fr.PATH_NONE)
+        print(f"phase5 fused_rows at {name}: rows={R} N={dm.n_items} B="
+              f"{dm.n_bundles} feasible={int((status == fr.FEASIBLE).sum())}"
+              f" max kept={max(r['kept'] for r in info)} max core="
               f"{max(r['core'] for r in info)} max eff_res="
-              f"{max(r['eff_res'] for r in info)}: bitwise equal; kernel "
-              f"{k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.6f} ms "
-              f"({b_by})")
-        rows_rec = rows_rec or (err, k_ms, p_ms, b_ms, b_by)
+              f"{max(r['eff_res'] for r in info)} max candidates="
+              f"{max(c for c, _p in plans)}; paths none/prefix/full "
+              f"{[int((took == p).sum()) for p in range(3)]}: bitwise equal;"
+              f" kernel {k_ms:.4f} ms plain "
+              + (f"{p_ms:.4f} ms" if p_ms is not None else "not timed")
+              + f" bound {b_ms:.6f} ms ({b_by}); clock64 cycles a pruned "
+              f"row: {split}")
+        if timed:
+            rows_rec = rows_rec or (err, k_ms, p_ms, b_ms, b_by)
+    check(path_rows[fr.PATH_PREFIX] > 0 and path_rows[fr.PATH_FULL] > 0,
+          f"fused_rows: both paths not taken in phase 5 ({path_rows})")
 
     dm, counts, reqf = cap_t.scores[1]          # the first golden round
     sk = sc.score(counts, dm.perf, dm.price, dm.podsf, reqf)
@@ -641,6 +772,9 @@ def run_fused(dev, catalog, big, ticks) -> list:
                   f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
               + ": equal to NumPy")
 
+    def segments():
+        return torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
+
     def tick(items, market, demands, spec):
         prov = KubePACSProvisioner(timer=fake_timer)
         prov.solve_batch = SolveBatch(spec)
@@ -659,14 +793,17 @@ def run_fused(dev, catalog, big, ticks) -> list:
             a.pool.as_dict() == b.pool.as_dict() for a, b in zip(dec_f, dec_n)),
             f"torch:fused fleet tick {name} differs from NumPy")
         fused_ok(be, f"fleet tick {name}", got)
-        walls = {spec: wall_s(lambda s=spec: tick(items, market, demands, s),
-                              3)
+        costs = {spec: [host_cost(lambda s=spec: tick(items, market, demands,
+                                                      s), segments)
+                        for _ in range(3)]
                  for spec in ("torch:fused", "torch", "numpy")}
         print(f"phase6 fleet tick {name} x {len(demands)} decisions "
               f"torch:fused: launches fused_rows={got[0]} ({tick_split}) "
-              f"score={got[1]}; "
-              "wall " + " ".join(f"{k} {v * 1e3:.3f} ms"
-                                 for k, v in walls.items())
+              f"score={got[1]}; wall (median of 3; each call's gc ms / new "
+              "device segments) " + " ".join(
+                  f"{k} {median([c[0] for c in v]) * 1e3:.3f} ms ("
+                  + ", ".join(f"{g:.3f}/{n}" for _w, g, n in v) + ")"
+                  for k, v in costs.items())
               + ": equal to NumPy")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"phase6 peak device memory (max_memory_allocated): {peak} B")
@@ -713,7 +850,7 @@ def run_fused(dev, catalog, big, ticks) -> list:
             self.ms["readback"] += (time.perf_counter() - t0) * 1e3
             return out
 
-    timed = Timed(dev)
+    timed = None
     verify = bmod._FusedGssRecord._verify_sample
 
     def timed_verify(rec, grid):
@@ -723,24 +860,38 @@ def run_fused(dev, catalog, big, ticks) -> list:
         finally:
             timed.ms["verify"] += (time.perf_counter() - t0) * 1e3
 
-    bmod._FusedGssRecord._verify_sample = timed_verify
-    try:
-        t0 = time.perf_counter()
+    def batch():
         bracketed_gss_many(t_items, t_demands, tolerance=TOLERANCE,
                            market=t_market, timer=fake_timer, backend=timed)
-        wall = (time.perf_counter() - t0) * 1e3
+
+    # five batches, each on a fresh backend; the median batch's breakdown
+    bmod._FusedGssRecord._verify_sample = timed_verify
+    gc.collect()         # earlier phases' garbage is no part of these batches
+    batches = []
+    try:
+        for _ in range(5):
+            timed = Timed(dev)
+            wall, *cost = host_cost(batch, segments)
+            batches.append((wall * 1e3, timed.ms, *cost))
     finally:
         bmod._FusedGssRecord._verify_sample = verify
-    ms = timed.ms
-    print(f"phase7 breakdown fused batch tick {t_name}: wall {wall:.3f} ms = "
-          f"host replay and glue {wall - sum(ms.values()):.3f} + verify "
-          f"(NumPy) {ms['verify']:.3f} + upload {ms['upload']:.3f} + kernels "
-          f"{ms['kernels']:.3f} + readback {ms['readback']:.3f} ms; kernel "
-          f"share {ms['kernels'] / wall:.4f}")
+    batches.sort(key=lambda b: b[0])
+    wall, ms, gc_ms, segs = batches[len(batches) // 2]
+    print(f"phase7 breakdown fused batch tick {t_name}, the median of "
+          f"{len(batches)} (walls "
+          + " ".join(f"{b[0]:.3f}" for b in batches)
+          + f" ms): wall {wall:.3f} ms = host replay and glue "
+          f"{wall - sum(ms.values()):.3f} + verify (NumPy) {ms['verify']:.3f}"
+          f" + upload {ms['upload']:.3f} + kernels {ms['kernels']:.3f} + "
+          f"readback {ms['readback']:.3f} ms; kernel share "
+          f"{ms['kernels'] / wall:.4f}; gc {gc_ms:.3f} ms, new device "
+          f"segments {segs}")
 
     err, k_ms, p_ms, b_ms, b_by = rows_rec
     return [
         {"name": "fused_rows", "route": "cuda",
+         "variant": "rate-order prefix by histogram selection and a "
+                    "shared-memory bitonic sort, 768 threads",
          "source": "src/repro_torch/csrc/fused_rows.cu",
          "replaces": "src/repro/core/backend.py:635 (_cover_kernel, as "
                      "the fused row solver of _solver_core calls it, "
@@ -827,7 +978,6 @@ def run_serving(dev) -> list:
     """Phases 8-10 on ``dev``: the serving path; returns the kernel records
     of ``flash_attention`` and ``mamba_scan``."""
     import dataclasses
-    import gc
 
     import torch
     import torch.nn.functional as F
@@ -836,11 +986,13 @@ def run_serving(dev) -> list:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (VARIANTS,
                                                      flash_attention_cuda)
-    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    from repro_torch.kernels.mamba_scan import (MAX_STATE,
+                                                selective_scan_cuda)
     from repro_torch.launch.serve import serve
     from repro_torch.models import count_params, init_params
     from repro_torch.serving import decode_fn, prefill_fn
 
+    scan_variant = "4 lanes a channel, ex2.approx, cp.async ring"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -954,10 +1106,10 @@ def run_serving(dev) -> list:
                 on_card(Cm, dtype), on_card(D, torch.float32),
                 None if h0 is None else on_card(h0, torch.float32))
 
-    def hold_scan(label, tol, args):
+    def hold_scan(label, tol, args, want=None):
         *xs, h0 = args
         y, h = selective_scan_cuda(*xs, h0=h0)
-        y_p, h_p = ref.selective_scan_ref(*xs, h0=h0)
+        y_p, h_p = want or ref.selective_scan_ref(*xs, h0=h0)
         torch.cuda.synchronize()
         e_y, e_h = err(y, y_p), err(h, h_p)
         check(y.dtype == xs[0].dtype and e_y <= tol and e_h <= tol,
@@ -972,19 +1124,32 @@ def run_serving(dev) -> list:
                                           scan_inputs(b, s, di, n, dtype)))
     worst = max(worst, *hold_scan("with h0", 1e-4, scan_inputs(
         2, 64, 32, 8, torch.float32, with_h0=True)))
+    # every N, with S = 1000 (ragged chunks) and di 64-70 (a ragged channel
+    # tile; 16-byte cp.async granules only where di and N allow them), an
+    # initial state, float32 at even N and bfloat16 at odd N
+    worst_n = 0.0
+    for n in range(1, MAX_STATE + 1):
+        dname = "float32" if n % 2 == 0 else "bfloat16"
+        worst_n = max(worst_n, *hold_scan(
+            f"N {n} S 1000 {dname}", SCAN_TOL[dname], scan_inputs(
+                2, 1000, 64 + 2 * (n % 4), n, dtypes[dname], with_h0=True)))
     print(f"phase8 mamba_scan: test shapes x float32/bfloat16 and an initial "
-          f"state within the bars (largest err {worst:.3e})")
+          f"state within the bars (largest err {worst:.3e}); N = 1..16 at "
+          f"S 1000, di 64-70, with h0 (float32 at even N, bfloat16 at odd): "
+          f"largest err {worst_n:.3e}")
     sshape = (4, 1024, 8192, 16)                  # falcon-mamba-7b prefill
     sargs = scan_inputs(*sshape, torch.bfloat16, model_like=True)
+    s_want = ref.selective_scan_ref(*sargs[:6])
     s_err, s_herr = hold_scan("falcon-mamba prefill", SCAN_TOL["bfloat16"],
-                              sargs)
+                              sargs, s_want)
     s_ms = cuda_ms(torch, lambda: selective_scan_cuda(*sargs[:6]), 20)
     sp_ms = cuda_ms(torch, lambda: ref.selective_scan_ref(*sargs[:6]), 2)
     sb_ms, sb_by = scan_bound(*sshape, elem=2)
-    print(f"phase8 mamba_scan at the falcon-mamba-7b prefill (B 4, S 1024, "
-          f"di 8192, N 16, bf16): y err {s_err:.3e} h_final err "
-          f"{s_herr:.3e}; kernel {s_ms:.4f} ms plain (sequential) "
-          f"{sp_ms:.4f} ms library none bound {sb_ms:.6f} ms ({sb_by})")
+    print(f"phase8 mamba_scan ({scan_variant}) at the falcon-mamba-7b prefill "
+          f"(B 4, S 1024, di 8192, N 16, bf16): y err {s_err:.3e} h_final "
+          f"err {s_herr:.3e}; kernel {s_ms:.4f} ms {sb_ms / s_ms:.2%} of "
+          f"bound; plain (sequential) {sp_ms:.4f} ms library none bound "
+          f"{sb_ms:.6f} ms ({sb_by})")
     del sargs
     print(f"phase8 took {time.perf_counter() - t_phase:.1f} s")
 
@@ -1137,7 +1302,7 @@ def run_serving(dev) -> list:
          "launches": n_flash, "max_abs_err": a_err, "ms": a_ms,
          "plain_ms": ap_ms, "bound_ms": ab_ms, "bound_by": ab_by,
          "library_ms": al_ms},
-        {"name": "mamba_scan", "route": "cuda",
+        {"name": "mamba_scan", "route": "cuda", "variant": scan_variant,
          "source": "src/repro_torch/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:23 "
                      "(_scan_kernel; pallas_call at :65)",

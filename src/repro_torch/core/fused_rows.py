@@ -9,6 +9,13 @@ kernel ``csrc/fused_rows.cu`` (one CTA per row, both cover DPs inside it
 through ``csrc/cover_dp.cuh``) per slice of rows; on a CPU stack it runs
 :func:`fused_rows_plain`, which the kernel is held to on the card.
 
+The kernel reads only the prefix of the rate order that a row uses (the
+first ``max(k_ub + _CORE_PAD, _CORE_MIN)`` bundles, ``cum_c`` up to
+``k_ub``): it selects candidates with a histogram of the rate keys and
+sorts those alone, or, when there are more than :data:`PREFIX_CAP`, sorts
+all of them.  :func:`prefix_plan` is that selection in NumPy; the row's
+path comes back in the optional ``paths`` output.
+
 Counts and statuses are bitwise the host engine's: every float op is the
 host's op in the host's order (see the kernel's source note for where that
 could break and why it does not).
@@ -30,6 +37,21 @@ from .cover_dp import SMEM_ROW_BYTES, CoverBatch, cover_dp_plain
 from .cuda_lib import library
 
 INFEASIBLE, FEASIBLE, TOO_WIDE = 0, 1, 2
+
+#: a row's path (the ``paths`` output): exited before the prune, rate-order
+#: prefix sorted in shared memory, all DP bundles sorted
+PATH_NONE, PATH_PREFIX, PATH_FULL = 0, 1, 2
+#: the kernel's selection histogram and the prefix path's capacity
+#: (``kBins``, ``kCap`` of ``csrc/fused_rows.cu``)
+SELECT_BINS = 4096
+PREFIX_CAP = 2048
+#: residuals from which the histogram keeps no pod sums (``kPodClamp``):
+#: such a row's prefix bound is all n bundles
+POD_CLAMP = 1 << 21
+#: the kernel's clock64 stamps a row (``stages`` output): start, then the
+#: end of each stage below
+STAGES = ("saturation", "select", "sort", "sums", "lp", "core_dp", "kept",
+          "decode_dp", "backtrack")
 
 #: the host engine's keep test: cost + lp <= ub * KEEP_REL + KEEP_ABS
 KEEP_REL = 1.0 + 1e-12
@@ -107,9 +129,18 @@ def _check_rows(dm: DeviceMarket, coefs, actives, reqs) -> None:
                              f"the market on {dev}")
 
 
+def _check_out(name: str, t: Optional[torch.Tensor], dtype, shape, dev):
+    if t is not None and (t.dtype != dtype or tuple(t.shape) != shape
+                          or t.device != dev or not t.is_contiguous()):
+        raise ValueError(f"fused_rows: {name} must be a contiguous {dtype} "
+                         f"{shape} tensor on {dev}")
+
+
 def fused_rows(dm: DeviceMarket, coefs: torch.Tensor, actives: torch.Tensor,
                reqs: torch.Tensor, coarse: Tuple[int, int, int],
-               max_req: int, bits_budget: int,
+               max_req: int, bits_budget: int, *,
+               paths: Optional[torch.Tensor] = None,
+               stages: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(counts (R, N) int64, status (R,) uint8)`` of every row: ``coefs``
     ``(R, N)`` float64 objective rows, ``actives`` ``(R, N)`` bool
@@ -118,10 +149,15 @@ def fused_rows(dm: DeviceMarket, coefs: torch.Tensor, actives: torch.Tensor,
 
     CUDA: the rows go to the kernel in slices whose improvement bits stay
     under ``bits_budget`` bytes, one launch each, counted in
-    ``fused_rows.launches``; nothing is synchronised.  CPU:
-    :func:`fused_rows_plain`."""
+    ``fused_rows.launches``; nothing is synchronised.  The kernel fills
+    ``paths`` (``(R,)`` uint8, one of ``PATH_*``) and ``stages`` (``(R,
+    len(STAGES) + 1)`` int64 clock64 stamps) when they are given.  CPU:
+    :func:`fused_rows_plain` (the outputs stay untouched)."""
     _check_rows(dm, coefs, actives, reqs)
     dev = coefs.device
+    R = coefs.shape[0]
+    _check_out("paths", paths, torch.uint8, (R,), dev)
+    _check_out("stages", stages, torch.int64, (R, len(STAGES) + 1), dev)
     if dev.type == "cpu":
         return fused_rows_plain(dm, coefs, actives, reqs, coarse, max_req)
     if dev.type != "cuda":
@@ -146,7 +182,7 @@ def fused_rows(dm: DeviceMarket, coefs: torch.Tensor, actives: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         for lo in range(0, R, step):
             n = min(step, R - lo)
-            fs = torch.empty(n * 6 * B, dtype=torch.float64, device=dev)
+            fs = torch.empty(n * 7 * B, dtype=torch.float64, device=dev)
             is_ = torch.empty(n * 3 * B, dtype=torch.int32, device=dev)
             keep = torch.empty(n * B, dtype=torch.uint8, device=dev)
             bits = torch.empty(n * B * width_cap, dtype=torch.uint8,
@@ -163,7 +199,9 @@ def fused_rows(dm: DeviceMarket, coefs: torch.Tensor, actives: torch.Tensor,
                 fs.data_ptr(), is_.data_ptr(), keep.data_ptr(),
                 None if dp_gl is None else dp_gl.data_ptr(),
                 bits.data_ptr(), counts[lo].data_ptr(),
-                status[lo:].data_ptr(), n, smem, stream)
+                status[lo:].data_ptr(), n, smem, stream,
+                None if paths is None else paths[lo:].data_ptr(),
+                None if stages is None else stages[lo].data_ptr())
             if err != 0:
                 raise RuntimeError(f"fused_rows: kernel launch failed with "
                                    f"CUDA error {err}")
@@ -180,6 +218,54 @@ def seq_cumsum(v: torch.Tensor) -> torch.Tensor:
     CPU copy: CPU ``torch.cumsum`` of a 1-D float64 tensor is one
     sequential loop, while CUDA's reassociates."""
     return torch.cumsum(v.cpu(), 0).to(v.device)
+
+
+def prefix_plan(rate: np.ndarray, pods: np.ndarray, residual: int,
+                ) -> Tuple[int, int]:
+    """``(candidates, path)`` of the kernel's selection for one row:
+    ``rate`` the row's DP bundle keys ``bcost / pods + 0.0`` (>= 0, finite)
+    and ``pods`` their pod sizes, both in market order.
+
+    The keys' bit patterns go to :data:`SELECT_BINS` bins (bin 0 the zero
+    keys, the rest spread over [least positive key, largest key] by a
+    shift); the first bin whose pod sum reaches ``residual`` (below
+    :data:`POD_CLAMP`) bounds ``k_ub``, hence the prefix length
+    ``min(n, max(k_ub + _CORE_PAD, _CORE_MIN))``; every bundle in a bin up
+    to the first whose count reaches that bound is a candidate.  More than
+    :data:`PREFIX_CAP` candidates take the full path."""
+    from .backend import _CORE_MIN, _CORE_PAD
+
+    bits = np.ascontiguousarray(rate, dtype=np.float64).view(np.uint64)
+    n = len(bits)
+    positive = bits[bits != 0]
+    lo = int(positive.min()) if positive.size else 0
+    span = int(bits.max()) - lo if positive.size else 0
+    shift = 0
+    while (span >> shift) >= SELECT_BINS - 1:
+        shift += 1
+    bins = np.zeros(n, dtype=np.int64)
+    nz = bits != 0
+    bins[nz] = 1 + ((bits[nz] - np.uint64(lo)) >> np.uint64(shift)
+                    ).astype(np.int64)
+    count = np.cumsum(np.bincount(bins, minlength=SELECT_BINS))
+    pod_sum = np.zeros(SELECT_BINS, dtype=np.int64)
+    np.add.at(pod_sum, bins, np.asarray(pods, dtype=np.int64))
+    pod_sum = np.cumsum(pod_sum)
+    reach = np.flatnonzero(pod_sum >= residual)
+    b1_count = int(count[reach[0]]) if reach.size and residual < POD_CLAMP \
+        else n
+    m_bound = min(n, max(b1_count - 1 + _CORE_PAD, _CORE_MIN))
+    cut = np.flatnonzero(count >= m_bound)
+    n_cand = int(count[cut[0]]) if cut.size else n
+    return n_cand, PATH_PREFIX if n_cand <= PREFIX_CAP else PATH_FULL
+
+
+def prefix_plans(info: List[dict]) -> List[Tuple[int, int]]:
+    """:func:`prefix_plan` of every row of :func:`fused_rows_plain`'s
+    ``info``; ``(0, PATH_NONE)`` for a row that exited before the rate
+    order."""
+    return [prefix_plan(r["rate"], r["pods"], r["residual"])
+            if "rate" in r else (0, PATH_NONE) for r in info]
 
 
 def _backtrack(bits: np.ndarray, pods: np.ndarray, target: int) -> np.ndarray:
@@ -210,11 +296,13 @@ def fused_rows_plain(dm: DeviceMarket, coefs: torch.Tensor,
                      info: Optional[List[dict]] = None,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function, row by row in torch ops on the rows' device
-    (sums on CPU copies, the cover DPs through ``cover_dp_plain``).  With
-    ``info`` a list, one dict per row is appended: the DP bundle count
-    ``n``, the core-DP length ``core`` (0 when the bound did not trigger),
-    the kept count ``kept`` and the DP target ``eff_res`` (0 when the row
-    exited before the DP)."""
+    (sums on CPU copies, the cover DPs through ``cover_dp_plain``), over
+    the whole rate order.  With ``info`` a list, one dict per row is
+    appended: the DP bundle count ``n``, the core-DP length ``core`` (0
+    when the bound did not trigger), the kept count ``kept``, the DP
+    target ``eff_res`` (0 when the row exited before the DP) and, for a
+    row that reached the rate order, its ``residual`` and its DP bundles'
+    rate keys ``rate`` and pod sizes ``pods`` in market order (NumPy)."""
     # deferred: backend imports this module; the host engine's prune
     # constants live there
     from .backend import _CORE_MIN, _CORE_PAD, _CORE_TRIGGER
@@ -275,6 +363,9 @@ def fused_rows_plain(dm: DeviceMarket, coefs: torch.Tensor,
         lp = torch.where(rb <= 0.0, zero, lp)
         keep = (bcost + lp) <= ub * KEEP_REL + KEEP_ABS
         row_info.update(n=n, eff_res=eff_res)
+        if info is not None:
+            row_info.update(residual=residual, rate=rate.cpu().numpy(),
+                            pods=bpods.cpu().numpy())
         if int(keep.sum()) > _CORE_TRIGGER:
             K = min(n, max(k_ub + _CORE_PAD, _CORE_MIN))
             row_info["core"] = K

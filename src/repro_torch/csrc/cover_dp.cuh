@@ -12,7 +12,7 @@
 // dp and bits are bitwise the host reference (NumpyBackend._one/_values):
 // only adds, compares and selects, in the host's order.
 //
-// The row is updated in place, in descending tiles of kThreads*kPerThread
+// The row is updated in place, in descending tiles of Threads*kPerThread
 // columns: a tile reads its candidates into registers, then one barrier,
 // then writes. pb >= 1, so dp[j - pb] lies below the tile's writes and
 // above nothing a later tile of the same bundle writes before reading; one
@@ -27,20 +27,21 @@ namespace kubepacs {
 
 constexpr int kThreads = 512;
 constexpr int kPerThread = 4;
-constexpr long long kTile = static_cast<long long>(kThreads) * kPerThread;
 
-// Runs the DP with the whole calling CTA (blockDim.x == kThreads; every
-// thread must call it). `bundles.pods(b)` and `bundles.cost(b)` give bundle
-// b; `row` holds T + 1 doubles (shared or global memory) and ends as dp;
+// Runs the DP with the whole calling CTA (blockDim.x == Threads, 512 for
+// cover_dp.cu, 768 for fused_rows.cu; every thread must call it); a tile
+// is Threads * kPerThread columns. `bundles.pods(b)` and `bundles.cost(b)`
+// give bundle b; `row` holds T + 1 doubles (shared or global memory) and ends as dp;
 // `bits`, when not null, receives nb rows of T + 1 bytes. Ends with a
 // barrier, so every thread may read `row` and `bits` on return.
-template <class Bundles>
+template <int Threads = kThreads, class Bundles>
 __device__ void cover_dp_block(const Bundles& bundles, long long nb,
                                long long T, double* row,
                                unsigned char* bits) {
+  constexpr long long kTile = static_cast<long long>(Threads) * kPerThread;
   const int tid = threadIdx.x;
   const long long width = T + 1;
-  for (long long j = tid; j < width; j += kThreads) {
+  for (long long j = tid; j < width; j += Threads) {
     row[j] = j == 0 ? 0.0 : CUDART_INF;
   }
   __syncthreads();
@@ -50,7 +51,7 @@ __device__ void cover_dp_block(const Bundles& bundles, long long nb,
     unsigned char* brow = bits ? bits + b * width : nullptr;
     if (!isfinite(cb)) {             // uniform across the CTA: no barrier
       if (brow) {
-        for (long long j = tid; j < width; j += kThreads) brow[j] = 0;
+        for (long long j = tid; j < width; j += Threads) brow[j] = 0;
       }
       continue;
     }
@@ -59,7 +60,7 @@ __device__ void cover_dp_block(const Bundles& bundles, long long nb,
       double next[kPerThread];
 #pragma unroll
       for (int k = 0; k < kPerThread; ++k) {
-        const long long j = hi - static_cast<long long>(k) * kThreads - tid;
+        const long long j = hi - static_cast<long long>(k) * Threads - tid;
         if (j >= 1) {
           const double d = row[j];
           const double c = j >= pb ? row[j - pb] + cb : cb;
@@ -71,7 +72,7 @@ __device__ void cover_dp_block(const Bundles& bundles, long long nb,
       __syncthreads();
 #pragma unroll
       for (int k = 0; k < kPerThread; ++k) {
-        const long long j = hi - static_cast<long long>(k) * kThreads - tid;
+        const long long j = hi - static_cast<long long>(k) * Threads - tid;
         if (j >= 1) row[j] = next[k];
       }
     }

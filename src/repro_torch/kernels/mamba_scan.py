@@ -2,10 +2,11 @@
 
 ``selective_scan_cuda`` runs ``h ← exp(dt·A)⊙h + (dt·x)⊗B``,
 ``y = Σ_N h·C + D·x`` over the whole sequence in one launch of the
-hand-written CUDA kernel ``csrc/mamba_scan.cu`` (one thread per batch row
-and channel, its state in registers; see the source for the design), and
-returns ``(y, h_final)`` — the final state comes out of the same pass.
-Any ``S`` works.
+hand-written CUDA kernel ``csrc/mamba_scan.cu`` (a group of four lanes
+per batch row and channel, its states spread over their registers,
+chunks of the sequence staged by ``cp.async``; see the source for the
+design), and returns ``(y, h_final)`` — the final state comes out of the
+same pass.  Any ``S`` works.
 
 On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
 it runs the plain version :func:`ref.selective_scan_chunked`.  The kernel

@@ -19,9 +19,13 @@ import repro.core as ref
 import repro_torch.core as port
 from repro.core.gss import bracketed_gss_many as ref_gss_many
 from repro_torch.core import backend as backend_mod
-from repro_torch.core.fused_rows import (FEASIBLE, TOO_WIDE, DeviceMarket,
+from repro_torch.core.fused_rows import (FEASIBLE, INFEASIBLE, PATH_FULL,
+                                         PATH_NONE, PATH_PREFIX, POD_CLAMP,
+                                         PREFIX_CAP, TOO_WIDE, DeviceMarket,
                                          dp_width, fused_rows,
-                                         fused_rows_plain, seq_cumsum)
+                                         fused_rows_plain, prefix_plan,
+                                         prefix_plans,
+                                         seq_cumsum)
 from repro_torch.core.gss import bracketed_gss_many as port_gss_many
 from repro_torch.core.score import score, score_plain
 
@@ -242,6 +246,217 @@ def test_cpu_cumsum_is_sequential():
         v = rng.uniform(-3.0, 3.0, n) * 10.0 ** rng.integers(-6, 6, n)
         got = seq_cumsum(torch.from_numpy(v)).numpy()
         assert got.tobytes() == np.cumsum(v).tobytes()
+
+
+# -- the rate-order prefix the kernel relies on ------------------------------
+
+def _rows_case(name, catalog):
+    """``(market, coefs (R, N), actives (R, N), reqs (R,), coarse)`` of one
+    case of the prefix tests: seeded random / gcd / deep markets, the
+    ``provision(5000)`` prescan at smoke size, and rows built to stress the
+    kernel's selection: every rate tied, -0.0 and 0.0 coefficients,
+    residual 1, residual equal to capacity (M = n), gcd mode."""
+    exact = (2 ** 62, 1, 1)
+    rng = np.random.default_rng(sum(map(ord, name)))
+    grid = np.array(GRID)
+    if name in ("random_market", "gcd_market", "big_market"):
+        items = {"random_market": lambda: random_market(rng, 60, 60),
+                 "gcd_market": lambda: gcd_market(rng),
+                 "big_market": lambda: big_market(rng, 40, 20, 200)}[name]()
+        m = _port(items)[1]
+        coefs = m.coefficients(grid)
+        actives = np.stack([m.structural] * len(grid))
+        actives[1] &= rng.random(m.n) < 0.7
+        hi = {"random_market": 60, "gcd_market": 1200, "big_market": 3000}
+        reqs = rng.integers(1, hi[name] + 1, len(grid))
+        coarse = (100, 1_000_000, m.pods_gcd) if name == "gcd_market" \
+            else exact
+        return m, coefs, actives, reqs, coarse
+    if name == "gcd_mode":
+        m = _port(gcd_market(rng))[1]
+    else:
+        m = _port(ref.preprocess(catalog, ref.Request(
+            pods=5000, cpu_per_pod=2, mem_per_pod=2,
+            workload={"network"})))[1]
+    st = m.structural
+    if name == "prescan_5000":
+        return (m, m.coefficients(grid), np.stack([st] * len(grid)),
+                np.full(len(grid), 5000), exact)
+    pods = m.pods.astype(np.float64)
+    pos = rng.uniform(0.05, 2.0, m.n)
+    zeros = pos.copy()
+    zeros[rng.random(m.n) < 0.25] = -0.0
+    zeros[rng.random(m.n) < 0.05] = 0.0
+    base = m.coefficients(np.array([0.1]))[0]
+    pb = m.pods * m.bound
+    if name == "ties":
+        rows = [(0.5 * pods, st, r) for r in (1, 2, 40, 700)]
+    elif name == "negative_zero":
+        rows = [(zeros, st, 300), (zeros, st, 3000), (-zeros, st, 5)]
+    elif name == "residual_1":
+        covered = int(pb[st & (base < 0)].sum())
+        rows = [(pos, st, 1), (base, st, covered + 1), (zeros, st, 1)]
+    elif name == "residual_capacity":
+        order = np.argsort(np.where(st, pb, np.iinfo(np.int64).max),
+                           kind="stable")
+        small = np.zeros(m.n, dtype=bool)
+        small[order[np.cumsum(pb[order]) <= 600]] = True
+        small &= st
+        cap = int(pb[small].sum())
+        rows = [(pos, small, cap), (pos, small, cap - 3),
+                (pos, st, int(pb[st].sum())), (pos, st, 300)]
+    else:                                   # gcd_mode
+        rows = [(0.5 * pods, st, 700), (zeros, st, 1200), (pos, st, 150),
+                (base, st, 900)]
+        return (m, np.stack([r[0] for r in rows]),
+                np.stack([r[1] for r in rows]),
+                np.array([r[2] for r in rows]), (100, 1_000_000, 8))
+    return (m, np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]),
+            np.array([r[2] for r in rows]), exact)
+
+
+PREFIX_CASES = ["random_market", "gcd_market", "big_market", "prescan_5000",
+                "ties", "negative_zero", "residual_1", "residual_capacity",
+                "gcd_mode"]
+
+
+def _rate_order(m, coef, act, residual):
+    """The row's DP bundles and their stable rate order, as the host engine
+    takes them: ``(bidx, pods, costs, order)``."""
+    neg = act & (coef < 0.0)
+    bidx = np.flatnonzero((act & ~neg)[m.b_item])
+    pods = m.b_pods[bidx]
+    costs = coef[m.b_item[bidx]] * m.b_copies[bidx].astype(np.float64)
+    return bidx, pods, costs, np.argsort(costs / pods + 0.0, kind="stable")
+
+
+def _poisoned_rows(m, coefs, actives, reqs, coarse, max_req, rng):
+    """The row solver over the whole host-order algorithm, with everything
+    past the prefix the kernel reads poisoned: the rate order beyond ``M =
+    min(n, max(k_ub + _CORE_PAD, _CORE_MIN))`` permuted at random and
+    ``cum_c`` beyond ``k_ub`` NaN.  Returns ``(counts, status, reads)``,
+    ``reads`` the ``(M, n, candidates)`` of each row that ran the prune."""
+    thr, maxr, gcd = coarse
+    width_cap = dp_width(max_req, coarse) + 1
+    pb_items = m.pods * m.bound
+    counts = np.zeros(coefs.shape, dtype=np.int64)
+    status = np.zeros(len(reqs), dtype=np.uint8)
+    reads = []
+    for r, (coef, act, req) in enumerate(zip(coefs, actives, reqs)):
+        neg = act & (coef < 0.0)
+        counts[r] = np.where(neg, m.bound, 0)
+        residual = max(int(req) - int(pb_items[neg].sum()), 0)
+        if residual == 0 or int(pb_items[act & ~neg].sum()) < residual:
+            status[r] = FEASIBLE if residual == 0 else INFEASIBLE
+            continue
+        eff_g = gcd if (residual > thr and gcd > 1
+                        and -(-residual // gcd) <= maxr) else 1
+        eff_res = -(-residual // eff_g)
+        if eff_res + 1 > width_cap:
+            status[r] = TOO_WIDE
+            continue
+        bidx, pods, costs, order = _rate_order(m, coef, act, residual)
+        n = len(order)
+        k_ub = min(int(np.searchsorted(np.cumsum(pods[order]), residual)),
+                   n - 1)
+        M = min(n, max(k_ub + backend_mod._CORE_PAD, backend_mod._CORE_MIN))
+        order = np.concatenate([order[:M], rng.permutation(order[M:])])
+        p_sorted = pods[order].astype(np.float64)
+        c_sorted = costs[order]
+        cum_p = np.cumsum(p_sorted)
+        cum_c = np.cumsum(c_sorted)
+        cum_c[k_ub + 1:] = np.nan
+        reads.append((M, n, prefix_plan(costs / pods + 0.0, pods,
+                                        residual)[0]))
+
+        ub = float(cum_c[k_ub])
+        rb = np.maximum(residual - pods, 0).astype(np.float64)
+        kk = np.minimum(np.searchsorted(cum_p, rb), n - 1)
+        km = np.maximum(kk - 1, 0)
+        prev_p = np.where(kk > 0, cum_p[km], 0.0)
+        prev_c = np.where(kk > 0, cum_c[km], 0.0)
+        lp = prev_c + (rb - prev_p) * (c_sorted[kk] / p_sorted[kk])
+        lp[rb <= 0.0] = 0.0
+        keep = costs + lp <= ub * (1.0 + 1e-12) + 1e-9
+        if int(keep.sum()) > backend_mod._CORE_TRIGGER:
+            K = min(n, max(k_ub + backend_mod._CORE_PAD,
+                           backend_mod._CORE_MIN))
+            dp = REF_NUMPY.cover_values(
+                [(pods[order[:K]] // eff_g, c_sorted[:K], eff_res)])[0]
+            if float(dp[eff_res]) < ub:
+                keep = costs + lp <= float(dp[eff_res]) * (1.0 + 1e-12) + 1e-9
+        kept = np.flatnonzero(keep)
+        kpods = pods[kept] // eff_g
+        _dp, bits = REF_NUMPY.cover_bits([(kpods, costs[kept], eff_res)])[0]
+        j = eff_res
+        for i in range(len(kept) - 1, -1, -1):
+            if j == 0:
+                break
+            if bits[i, j]:
+                b = bidx[kept[i]]
+                counts[r, m.b_item[b]] += m.b_copies[b]
+                j = max(0, j - int(kpods[i]))
+        status[r] = FEASIBLE
+    return counts, status, reads
+
+
+@pytest.mark.parametrize("case", PREFIX_CASES)
+def test_rows_read_only_the_rate_order_prefix(case, catalog):
+    """Poisoning the rate order past the prefix the kernel sorts and
+    ``cum_c`` past ``k_ub`` leaves every count and status bitwise
+    ``fused_rows_plain``'s; the kernel's selection (``prefix_plan``) holds
+    at least that prefix."""
+    m, coefs, actives, reqs, coarse = _rows_case(case, catalog)
+    max_req = int(reqs.max())
+    dm = DeviceMarket.build(m, torch.device("cpu"))
+    info = []
+    c_p, s_p = fused_rows_plain(dm, torch.from_numpy(coefs),
+                                torch.from_numpy(actives),
+                                torch.from_numpy(reqs), coarse, max_req, info)
+    c_x, s_x, reads = _poisoned_rows(m, coefs, actives, reqs, coarse,
+                                     max_req, np.random.default_rng(0))
+    assert np.array_equal(c_x, c_p.numpy()) and np.array_equal(s_x,
+                                                               s_p.numpy())
+    assert reads and any(M < n for M, n, _c in reads)    # something poisoned
+    assert all(M <= cand <= n for M, n, cand in reads)
+    assert [c for c, p in prefix_plans(info) if p != PATH_NONE] == \
+        [cand for _M, _n, cand in reads]
+
+
+@pytest.mark.parametrize("residual", [1, 37, 900, 30_000, POD_CLAMP])
+def test_prefix_plan_holds_the_prefix_and_its_ties(residual):
+    """The selection's candidates are every key up to a cut (ties and the
+    -0.0 / 0.0 pair included) and at least the prefix M the row reads; a
+    residual from ``POD_CLAMP`` up bounds nothing, so M = n."""
+    rng = np.random.default_rng(residual)
+    n = 6000
+    pods = rng.integers(1, 40, n)
+    rate = rng.choice(rng.uniform(0.01, 3.0, 700), n)      # many ties
+    rate[rng.random(n) < 0.03] = 0.0
+    rate = rate + 0.0
+    cand, path = prefix_plan(rate, pods, residual)
+    order = np.argsort(rate, kind="stable")
+    k_ub = min(int(np.searchsorted(np.cumsum(pods[order]), residual)), n - 1)
+    M = min(n, max(k_ub + backend_mod._CORE_PAD, backend_mod._CORE_MIN))
+    if residual >= POD_CLAMP:
+        M = n
+    assert M <= cand <= n
+    cut = rate[order[cand - 1]]
+    assert cand == n or rate[order[cand]] > cut             # whole ties
+    assert path == (PATH_PREFIX if cand <= PREFIX_CAP else PATH_FULL)
+
+
+@pytest.mark.parametrize("case", PREFIX_CASES)
+def test_int64_running_sum_is_seq_cumsum(case, catalog):
+    """``cum_p`` as the kernel takes it, an int64 scan of the rate-ordered
+    pod sizes, is ``seq_cumsum`` of them as float64, bitwise."""
+    m, coefs, actives, reqs, _coarse = _rows_case(case, catalog)
+    for coef, act, req in zip(coefs, actives, reqs):
+        _bidx, pods, _costs, order = _rate_order(m, coef, act, int(req))
+        p_sorted = pods[order]
+        want = seq_cumsum(torch.from_numpy(p_sorted.astype(np.float64)))
+        assert np.cumsum(p_sorted).astype(np.float64).tobytes() == \
+            want.numpy().tobytes()
 
 
 def test_device_cache_hits_misses_and_lru():

@@ -290,6 +290,37 @@ def test_scan_final_state_vs_reference(shape, with_h0):
         np.testing.assert_allclose(_np(h_g), _np(h_w), atol=1e-4)
 
 
+@pytest.mark.parametrize("n", [1, 5, 13, 16])
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "h0"])
+def test_plain_scans_at_ragged_state_widths(n, case):
+    """The plain scans the kernel is held to, at state widths that do not
+    split evenly over the kernel's four lanes a channel (1, 5, 13) and the
+    full width 16: ``selective_scan_chunked`` and
+    ``selective_scan_ref`` against the Pallas kernel in interpret mode (y),
+    and with an initial state, which the Pallas kernel does not take,
+    against the reference's sequential oracle (y and ``h_final``)."""
+    b, s, di, chunk = 2, 48, 16, 16
+    dtype = "float32" if case == "h0" else case
+    x, dt, A, Bm, Cm, D, h0 = _scan_inputs(np.random.default_rng(40 + n), b,
+                                           s, di, n, dtype, case == "h0")
+    args = (x[1], dt[1], A[1], Bm[1], Cm[1], D[1])
+    h0t = None if h0 is None else h0[1]
+    got = [ref.selective_scan_chunked(*args, h0=h0t, chunk=chunk),
+           ref.selective_scan_ref(*args, h0=h0t)]
+    if case == "h0":
+        y_w, h_w = jref.selective_scan_ref(x[0], dt[0], A[0], Bm[0], Cm[0],
+                                           D[0], h0=h0[0])
+    else:
+        y_w = selective_scan_pallas(x[0], dt[0], A[0], Bm[0], Cm[0], D[0],
+                                    chunk=chunk, di_block=di,
+                                    interpret=True)
+    for y_g, h_g in got:
+        assert y_g.dtype == x[1].dtype and h_g.shape == (b, di, n)
+        np.testing.assert_allclose(_np(y_g), _np(y_w), atol=SCAN_TOL[dtype])
+        if case == "h0":
+            np.testing.assert_allclose(_np(h_g), _np(h_w), atol=1e-4)
+
+
 def test_associative_scan_matches_reference_chunked():
     """The chunk recursion follows ``jax.lax.associative_scan``: the
     chunked scans agree far inside the bar, odd chunk lengths included."""
