@@ -12,7 +12,8 @@ system's real sizes and holds every result to the host:
    the host NumPy oracle — dp bytes and bits exactly — on the
    ``_run_pallas_check`` case, a ragged stack of 300 groups with targets up
    to 8192, and a stack with a group too wide for shared memory; times the
-   kernel, the plain version and the host at the widest shape;
+   kernel, the plain version and the host at the widest shape, with the
+   longest group's bundle count and the kernel's ns a bundle step;
 3. ``KubePACSProvisioner().provision`` (default backend ``torch``: the
    cover-DP kernel) on the full 9,792-offering catalog at 1000 and 5000
    pods, equal to the NumPy backend's decision;
@@ -25,19 +26,23 @@ system's real sizes and holds every result to the host:
    golden-round stack of the 250 x 5000 tick and an adversarial stack at
    the full catalog's width (``stress_rows``: ties, -0.0, residual 1 and
    capacity, gcd mode), each row's path (prefix or full sort) equal to
-   ``prefix_plan``'s and both paths taken, with the kernel's clock64
-   split by stage; ``score`` against ``score_plain`` (bitwise); times the
-   kernels, the plain versions and, for ``score``, one ``torch.matmul``;
+   ``prefix_plan``'s and both paths taken, and each row's folded pool score
+   bitwise ``score_plain``'s (``-inf`` unless feasible), with the kernel's
+   clock64 split by stage and the cycles a bundle step of both DPs;
+   ``score`` against ``score_plain`` (bitwise); times the kernels, the
+   plain versions and, for ``score``, one ``torch.matmul``;
 6. ``provision()`` at 1000 and 5000 pods and both fleet ticks through
    ``torch:fused``, each equal to the NumPy decision with no fallback
-   solve, at least one verification solve, and ``fused_rows`` and
-   ``score`` launched, the ``fused_rows`` launches split by stack shape;
+   solve, at least one verification solve, ``fused_rows`` launched (its
+   golden rows scoring their pools) and no standalone ``score`` launch, the
+   ``fused_rows`` launches split by stack shape;
    walls of ``torch:fused``, ``torch`` and ``numpy`` (for the ticks with
    each call's garbage-collection time and new device memory segments)
    and the peak device memory;
 7. where the time of one fused batch (the 250 x 5000 tick) goes, the
    median of five on fresh backends: host replay, the sampled NumPy
-   verification, upload, kernels, readback, with the same host costs;
+   verification, upload, kernels, readback, with the same host costs and
+   no standalone ``score`` launch;
 8. the serving path's kernels against their plain torch versions on the
    card: ``flash_attention`` (``o`` and ``lse``) over the kernel tests'
    shapes, masked and non-causal cases in float32 and bfloat16, a ragged
@@ -195,6 +200,12 @@ def bound(groups):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP64_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def longest(groups) -> int:
+    """The bundle count of the longest group: the chain of dependent bundle
+    steps that a launch's time follows."""
+    return max((len(g[0]) for g in groups), default=0)
 
 
 def hgmma_counts(lib):
@@ -358,8 +369,11 @@ def run(dev) -> dict:
     p_ms = cuda_ms(torch, lambda: cdp.cover_dp_plain(top_batch, True), 3)
     h_ms = wall_s(lambda: NumpyBackend().cover_bits(top), 3) * 1e3
     b_ms, b_by = bound(top)
+    chain = longest(top)
     print(f"phase2 top shape: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"host numpy {h_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+          f"host numpy {h_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); longest "
+          f"group {chain} bundles: {k_ms * 1e6 / max(chain, 1):.1f} ns a "
+          f"bundle step")
 
     # -- phase 3: provision() end to end, default backend ------------------
     catalog = generate_catalog(seed=0)
@@ -498,14 +512,20 @@ def run(dev) -> dict:
         p_ms = cuda_ms(torch, lambda: cdp.cover_dp_plain(batch, True), 5)
         h_ms = wall_s(lambda: NumpyBackend().cover_bits(groups), 3) * 1e3
         b_ms, b_by = bound(groups)
+        chain = longest(groups)
         print(f"kernel at {name} widest dispatch: G={len(groups)} sum B="
               f"{batch.n_bundles} max T={int(batch.targets.max())} bits "
               f"{timed.widest[0]} B: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-              f"host numpy {h_ms:.4f} ms bound {b_ms:.6f} ms ({b_by})")
+              f"host numpy {h_ms:.4f} ms bound {b_ms:.6f} ms ({b_by}); "
+              f"longest group {chain} bundles: "
+              f"{k_ms * 1e6 / max(chain, 1):.1f} ns a bundle step")
         record = (err, k_ms, p_ms, b_ms, b_by)     # the last: the 250x5000 tick
     err, k_ms, p_ms, b_ms, b_by = record
     kernels = [{
         "name": "cover_dp", "route": "cuda",
+        "variant": "two dp rows, one barrier a finite bundle, the "
+                   "bundles staged in shared memory a chunk ahead, a "
+                   "thread's columns in registers, 384 threads",
         "source": "src/repro_torch/csrc/cover_dp.cu",
         "replaces": "src/repro/core/backend.py:329 (relax_kernel); "
                     "src/repro/core/backend.py:635 (_cover_kernel)",
@@ -572,18 +592,29 @@ def stress_rows(market, dev, seed=15):
     return coefs, actives, reqs, (6500, 1_000_000, 4), int(reqs.max())
 
 
-def stage_split(stamps, names, pruned):
+def stage_split(stamps, names, pruned, info):
     """The mean clock64 cycles a row spends in each stage over the rows
-    that ran the prune (``pruned``), as ``name cycles (share)``, and the
-    slowest row's total."""
+    that ran the prune (``pruned``), as ``name cycles (share)``, the
+    slowest row's total, and the cycles a bundle step of each DP: the
+    stage's cycles over its bundles (``core`` and ``kept`` of
+    ``fused_rows_plain``'s ``info``), summed over the rows that ran it (the
+    core DP's stage also holds its keep pass)."""
     d = np.diff(stamps[pruned], axis=1)
     if not len(d):
         return "no row ran the prune"
     mean = d.mean(axis=0)
     tot = mean.sum()
+    rows = [r for r, p in zip(info, pruned) if p]
+    per_step = []
+    for stage, key in (("core_dp", "core"), ("decode_dp", "kept")):
+        steps = np.array([r[key] for r in rows])
+        cyc = d[:, names.index(stage)]
+        per_step.append(f"{stage} {cyc[steps > 0].sum() / steps.sum():.1f}"
+                        if steps.sum() else f"{stage} none")
     return (", ".join(f"{n} {m:.0f} ({m / tot:.3f})"
                       for n, m in zip(names, mean))
-            + f"; slowest row {int(d.sum(axis=1).max())} cycles")
+            + f"; slowest row {int(d.sum(axis=1).max())} cycles; cycles a "
+            "bundle step: " + ", ".join(per_step))
 
 
 def score_bound(D, N):
@@ -609,19 +640,15 @@ def run_fused(dev, catalog, big, ticks) -> list:
     from repro_torch.core.gss import bracketed_gss_many
 
     class Capture(FusedTorchBackend):
-        """Keeps the inputs of every row stack and score launch."""
+        """Keeps the inputs of every row stack: ``(args, score_req)``."""
 
         def __init__(self, device):
             super().__init__(device)
-            self.rows, self.scores = [], []
+            self.rows = []
 
-        def _rows(self, *args):
-            self.rows.append(args)
-            return FusedTorchBackend._rows(self, *args)
-
-        def _score(self, *args):
-            self.scores.append(args)
-            return FusedTorchBackend._score(self, *args)
+        def _rows(self, *args, score_req=None):
+            self.rows.append((args, score_req))
+            return FusedTorchBackend._rows(self, *args, score_req=score_req)
 
     # -- phase 5: kernels vs plain versions at main-path shapes -------------
     req5k = Request(pods=5000, cpu_per_pod=2, mem_per_pod=2,
@@ -636,35 +663,46 @@ def run_fused(dev, catalog, big, ticks) -> list:
     budget = cap_p.bits_budget
     rows_rec = None
     path_rows = collections.Counter()
-    dm5 = cap_p.rows[0][0]
+    dm5 = cap_p.rows[0][0][0]
     # rows[0] is the prescan stack, rows[1] the bracket's first two probes,
-    # rows[2:] the golden rounds (one row per decision); then the stress rows
-    # at the full catalog's width (no plain time: a reading, not a path)
-    for name, (dm, coefs, actives, reqs, coarse, max_req), timed in (
+    # rows[2:] the golden rounds (one row per decision, each scoring its
+    # pool); then the stress rows at the full catalog's width (no plain
+    # time: a reading, not a path). Every stack is held with scores too (the
+    # prescan's and the stress rows' at their own demands); each is timed
+    # as its main path calls it
+    for name, ((dm, coefs, actives, reqs, coarse, max_req), main_req), \
+            timed in (
             ("prescan of provision 5000", cap_p.rows[0], True),
             ("golden round of provision 5000", cap_p.rows[2], True),
             (f"golden round of tick {t_name}", cap_t.rows[2], True),
-            ("adversarial stack", (dm5, *stress_rows(
-                compile_market(preprocess(catalog, req5k)), dev)),
+            ("adversarial stack", ((dm5, *stress_rows(
+                compile_market(preprocess(catalog, req5k)), dev)), None),
              False)):
-        def kernel(**out):
-            return fr.fused_rows(dm, coefs, actives, reqs, coarse, max_req,
-                                 budget, **out)
+        held_req = (main_req if main_req is not None
+                    else reqs.to(torch.float64))
 
-        def plain(info=None):
+        def kernel(score_req=main_req, **out):
+            return fr.fused_rows(dm, coefs, actives, reqs, coarse, max_req,
+                                 budget, score_req=score_req, **out)
+
+        def plain(info=None, score_req=main_req):
             return fr.fused_rows_plain(dm, coefs, actives, reqs, coarse,
-                                       max_req, info)
+                                       max_req, info, score_req=score_req)
 
         R = coefs.shape[0]
         paths = torch.full((R,), 255, dtype=torch.uint8, device=dev)
         stamps = torch.zeros((R, len(fr.STAGES) + 1), dtype=torch.int64,
                              device=dev)
-        ck, sk = kernel(paths=paths, stages=stamps)
+        ck, sk, fk = kernel(held_req, paths=paths, stages=stamps)
         info = []
-        cp, sp = plain(info)
+        cp, sp, fp = plain(info, held_req)
         torch.cuda.synchronize()
         check(torch.equal(ck, cp) and torch.equal(sk, sp),
               f"fused_rows {name}: kernel != plain version on the card")
+        check(fk.cpu().numpy().tobytes() == fp.cpu().numpy().tobytes(),
+              f"fused_rows {name}: folded scores != score_plain's")
+        if main_req is not None:
+            golden = (dm, ck, main_req, fk)       # the last: the tick's
         took = paths.cpu().numpy()
         plans = fr.prefix_plans(info)
         check(took.tolist() == [p for _c, p in plans],
@@ -677,14 +715,16 @@ def run_fused(dev, catalog, big, ticks) -> list:
         b_ms, b_by = rows_bound(dm, coefs, info)
         status = sk.cpu().numpy()
         split = stage_split(stamps.cpu().numpy(), fr.STAGES,
-                            took != fr.PATH_NONE)
+                            took != fr.PATH_NONE, info)
         print(f"phase5 fused_rows at {name}: rows={R} N={dm.n_items} B="
               f"{dm.n_bundles} feasible={int((status == fr.FEASIBLE).sum())}"
+              f" scored={'yes' if main_req is not None else 'held only'}"
               f" max kept={max(r['kept'] for r in info)} max core="
               f"{max(r['core'] for r in info)} max eff_res="
               f"{max(r['eff_res'] for r in info)} max candidates="
               f"{max(c for c, _p in plans)}; paths none/prefix/full "
-              f"{[int((took == p).sum()) for p in range(3)]}: bitwise equal;"
+              f"{[int((took == p).sum()) for p in range(3)]}: counts, status "
+              f"and scores bitwise equal;"
               f" kernel {k_ms:.4f} ms plain "
               + (f"{p_ms:.4f} ms" if p_ms is not None else "not timed")
               + f" bound {b_ms:.6f} ms ({b_by}); clock64 cycles a pruned "
@@ -694,11 +734,14 @@ def run_fused(dev, catalog, big, ticks) -> list:
     check(path_rows[fr.PATH_PREFIX] > 0 and path_rows[fr.PATH_FULL] > 0,
           f"fused_rows: both paths not taken in phase 5 ({path_rows})")
 
-    dm, counts, reqf = cap_t.scores[1]          # the first golden round
+    dm, counts, reqf, folded = golden     # the tick's first golden round
     sk = sc.score(counts, dm.perf, dm.price, dm.podsf, reqf)
     sp = sc.score_plain(counts, dm.perf, dm.price, dm.podsf, reqf)
     torch.cuda.synchronize()
     check(torch.equal(sk, sp), "score: kernel != plain version on the card")
+    fin = torch.isfinite(folded)
+    check(torch.equal(folded[fin], sk[fin]),
+          "score: the folded scores differ from the standalone kernel's")
     s_err = float((sk - sp).abs().max())
     s_ms = cuda_ms(torch, lambda: sc.score(counts, dm.perf, dm.price,
                                            dm.podsf, reqf), 20)
@@ -714,29 +757,36 @@ def run_fused(dev, catalog, big, ticks) -> list:
           f"({sb_by})")
 
     # -- phase 6: the main path through torch:fused --------------------------
-    n_rows = n_score = 0
+    n_rows = n_score = n_scoring = n_scored = 0
     torch.cuda.reset_peak_memory_stats(dev)
     stacks = collections.Counter()      # (rows, N) of each fused_rows stack
+    scored = [0]                        # rows asked for their scores
     rows_fn = FusedTorchBackend._rows
 
-    def recorded_rows(self, dm, coefs, *args):
+    def recorded_rows(self, dm, coefs, *args, score_req=None):
         stacks[tuple(coefs.shape)] += 1
-        return rows_fn(self, dm, coefs, *args)
+        if score_req is not None:
+            scored[0] += coefs.shape[0]
+        return rows_fn(self, dm, coefs, *args, score_req=score_req)
 
     def counted(drive):
-        nonlocal n_rows, n_score
-        fr.fused_rows.launches = sc.score.launches = 0
+        nonlocal n_rows, n_score, n_scoring, n_scored
+        fr.fused_rows.launches = fr.fused_rows.scoring_launches = 0
+        sc.score.launches = scored[0] = 0
         stacks.clear()
         FusedTorchBackend._rows = recorded_rows
         try:
             out = drive()
         finally:
             FusedTorchBackend._rows = rows_fn
-        got = (fr.fused_rows.launches, sc.score.launches)
+        got = (fr.fused_rows.launches, sc.score.launches,
+               fr.fused_rows.scoring_launches)
         check(sum(stacks.values()) == got[0], f"fused_rows stacks {stacks} "
               f"against {got[0]} launches")
         n_rows += got[0]
         n_score += got[1]
+        n_scoring += got[2]
+        n_scored += scored[0]
         return out, got
 
     def split():
@@ -747,7 +797,9 @@ def run_fused(dev, catalog, big, ticks) -> list:
         info = be.device_cache_info()
         check(info["fallback_solves"] == 0, f"{what}: fallback solves {info}")
         check(info["verify_solves"] >= 1, f"{what}: no verification solve")
-        check(got[0] > 0 and got[1] > 0, f"{what}: launches {got}")
+        check(got[0] > 0 and got[2] > 0 and got[1] == 0,
+              f"{what}: launches (fused_rows, standalone score, scoring "
+              f"fused_rows) {got}")
 
     for pods in (1000, 5000):
         req = Request(pods=pods, cpu_per_pod=2, mem_per_pod=2,
@@ -767,7 +819,8 @@ def run_fused(dev, catalog, big, ticks) -> list:
                  for spec, p in provs.items()}
         print(f"phase6 provision pods={pods} torch:fused: alpha="
               f"{d_f.alpha!r} nodes={sum(d_f.pool.counts)} launches "
-              f"fused_rows={got[0]} ({prov_split}) score={got[1]}; wall "
+              f"fused_rows={got[0]} ({prov_split}; {got[2]} scoring) "
+              f"standalone score={got[1]}; wall "
               + " ".join(
                   f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
               + ": equal to NumPy")
@@ -799,7 +852,8 @@ def run_fused(dev, catalog, big, ticks) -> list:
                  for spec in ("torch:fused", "torch", "numpy")}
         print(f"phase6 fleet tick {name} x {len(demands)} decisions "
               f"torch:fused: launches fused_rows={got[0]} ({tick_split}) "
-              f"score={got[1]}; wall (median of 3; each call's gc ms / new "
+              f"{got[2]} scoring, standalone score={got[1]}; wall (median "
+              "of 3; each call's gc ms / new "
               "device segments) " + " ".join(
                   f"{k} {median([c[0] for c in v]) * 1e3:.3f} ms ("
                   + ", ".join(f"{g:.3f}/{n}" for _w, g, n in v) + ")"
@@ -826,22 +880,20 @@ def run_fused(dev, catalog, big, ticks) -> list:
             self.ms["upload"] += (time.perf_counter() - t0) * 1e3
             return out
 
-        def _kernel(self, fn, *args):
+        def _kernel(self, fn, *args, **kw):
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = fn(self, *args)
+            out = fn(self, *args, **kw)
             end.record()
             end.synchronize()
             self.ms["kernels"] += start.elapsed_time(end)
             return out
 
-        def _rows(self, *args):
-            return self._kernel(FusedTorchBackend._rows, *args)
-
-        def _score(self, *args):
-            return self._kernel(FusedTorchBackend._score, *args)
+        def _rows(self, *args, score_req=None):
+            return self._kernel(FusedTorchBackend._rows, *args,
+                                score_req=score_req)
 
         def _to_host(self, *tensors):
             torch.cuda.synchronize()
@@ -868,6 +920,7 @@ def run_fused(dev, catalog, big, ticks) -> list:
     bmod._FusedGssRecord._verify_sample = timed_verify
     gc.collect()         # earlier phases' garbage is no part of these batches
     batches = []
+    sc.score.launches = 0
     try:
         for _ in range(5):
             timed = Timed(dev)
@@ -875,6 +928,8 @@ def run_fused(dev, catalog, big, ticks) -> list:
             batches.append((wall * 1e3, timed.ms, *cost))
     finally:
         bmod._FusedGssRecord._verify_sample = verify
+    check(sc.score.launches == 0,
+          f"phase 7: {sc.score.launches} standalone score launches")
     batches.sort(key=lambda b: b[0])
     wall, ms, gc_ms, segs = batches[len(batches) // 2]
     print(f"phase7 breakdown fused batch tick {t_name}, the median of "
@@ -891,7 +946,8 @@ def run_fused(dev, catalog, big, ticks) -> list:
     return [
         {"name": "fused_rows", "route": "cuda",
          "variant": "rate-order prefix by histogram selection and a "
-                    "shared-memory bitonic sort, 768 threads",
+                    "shared-memory bitonic sort, two dp rows, the pool "
+                    "score in the golden rows' tail, 768 threads",
          "source": "src/repro_torch/csrc/fused_rows.cu",
          "replaces": "src/repro/core/backend.py:635 (_cover_kernel, as "
                      "the fused row solver of _solver_core calls it, "
@@ -901,7 +957,11 @@ def run_fused(dev, catalog, big, ticks) -> list:
         {"name": "score", "route": "cuda",
          "source": "src/repro_torch/csrc/score.cu",
          "replaces": "src/repro/core/backend.py:847 (_score_kernel)",
-         "launches": n_score, "max_abs_err": s_err, "ms": s_ms,
+         "variant": "score_block of score.cuh; on the main path in the "
+                    "tail of fused_rows' golden rows, no launch of its own",
+         "launches": n_score, "fused_rows_launches_scoring": n_scoring,
+         "rows_scored_in_fused_rows": n_scored,
+         "max_abs_err": s_err, "ms": s_ms,
          "plain_ms": sp_ms, "bound_ms": sb_ms, "bound_by": sb_by,
          "library_ms": lib_ms}]
 

@@ -17,8 +17,9 @@ implementations, and the fused plane that runs a whole search on the card:
   plain torch version instead.
 * :class:`FusedTorchBackend` — the fused decision plane
   (``"torch:fused"``; ``"torch:fused:cpu"`` on the host): a whole batched
-  GSS on the card through the row-solver and pool-scoring kernels, read
-  back once and replayed on the host (DESIGN.md §13).
+  GSS on the card through the row-solver kernel, whose golden rows also
+  score their pools, read back once and replayed on the host (DESIGN.md
+  §13).
 
 Canonical kernel semantics (every backend, float64):
 
@@ -57,7 +58,6 @@ import torch
 from .cover_dp import CoverBatch, cover_dp
 from .cuda_lib import build
 from .fused_rows import FEASIBLE, TOO_WIDE, DeviceMarket, fused_rows
-from .score import score
 
 #: one (bpods, costs, target) residual covering problem; ``bpods`` int64
 #: (all >= 1), ``costs`` float64 (may contain +inf), ``target`` >= 1
@@ -318,8 +318,9 @@ class FusedTorchBackend(TorchBackend):
       queues, with no synchronisation, the bracket update as elementwise
       torch ops (each product its own op, so it is rounded before the add
       that uses it, as on the host), one ``fused_rows`` launch for every
-      decision's probe, one :func:`~repro_torch.core.score.score` launch
-      to steer the brackets, and the event writes.  A round in which no
+      decision's probe, whose rows also return the speculative pool score
+      that steers the brackets (``score_req``: no ``score`` launch of its
+      own), and the event writes.  A round in which no
       decision is active changes nothing, so the fixed count records the
       reference's ``while_loop`` events exactly.  The events are read back
       once.
@@ -422,12 +423,10 @@ class FusedTorchBackend(TorchBackend):
         a = alphas[:, None]
         return torch.mul(-a, pn) + torch.mul(1.0 - a, qn)
 
-    def _rows(self, dm, coefs, actives, reqs, coarse, max_req):
+    def _rows(self, dm, coefs, actives, reqs, coarse, max_req,
+              score_req=None):
         return fused_rows(dm, coefs, actives, reqs, coarse, max_req,
-                          self.bits_budget)
-
-    def _score(self, dm, counts, reqf):
-        return score(counts, dm.perf, dm.price, dm.podsf, reqf)
+                          self.bits_budget, score_req=score_req)
 
     @staticmethod
     def _to_host(*tensors):
@@ -475,20 +474,15 @@ class FusedTorchBackend(TorchBackend):
         b = torch.tensor([float(x) for x in b_list], dtype=torch.float64
                          ).to(dev)
 
-        def spec(counts, status, req_f):
-            s = self._score(dm, counts, req_f)
-            return torch.where(status == FEASIBLE, s,
-                               torch.full_like(s, float("-inf")))
-
-        # bracket init: the host's x1/x2 formulas; both probes, one stack
+        # bracket init: the host's x1/x2 formulas; both probes, one stack;
+        # each row scores its pool (-inf unless feasible)
         w0 = (b - a) * _PHI
         x1, x2 = b - w0, a + w0
-        c12, s12 = self._rows(dm, self._coefs(torch.cat([x1, x2]),
-                                              pn.repeat(2, 1),
-                                              qn.repeat(2, 1)),
-                              active.repeat(2, 1), rq.repeat(2), coarse,
-                              max_req)
-        f12 = spec(c12, s12, reqf.repeat(2))
+        c12, s12, f12 = self._rows(dm, self._coefs(torch.cat([x1, x2]),
+                                                   pn.repeat(2, 1),
+                                                   qn.repeat(2, 1)),
+                                   active.repeat(2, 1), rq.repeat(2), coarse,
+                                   max_req, score_req=reqf.repeat(2))
         f1, f2 = f12[:D], f12[D:]
         ev_a = torch.zeros((D, E), **f64)
         ev_c = torch.zeros((D, E, n), dtype=torch.int64, device=dev)
@@ -513,11 +507,11 @@ class FusedTorchBackend(TorchBackend):
             pf1 = torch.where(left, f2, f1)
             pf2 = torch.where(right, f1, f2)
             probe = torch.where(right, nx1, torch.where(left, nx2, zero_a))
-            # inactive decisions re-solve req = 0: the saturation exit
-            cp, sp = self._rows(dm, self._coefs(probe, pn, qn), active,
-                                torch.where(act, rq, zero_r), coarse,
-                                max_req)
-            fp = spec(cp, sp, reqf)
+            # inactive decisions re-solve req = 0 (the saturation exit),
+            # scored at their demand all the same
+            cp, sp, fp = self._rows(dm, self._coefs(probe, pn, qn), active,
+                                    torch.where(act, rq, zero_r), coarse,
+                                    max_req, score_req=reqf)
             f1 = torch.where(right, fp, pf1)
             f2 = torch.where(left, fp, pf2)
             ev_a[dn, evn] = torch.where(act, probe, ev_a[dn, evn])

@@ -3,7 +3,8 @@
 ``cover_dp`` runs the canonical recurrence of :mod:`repro_torch.core.backend`
 for a ragged stack of groups in one launch of the hand-written CUDA kernel
 ``csrc/cover_dp.cu`` (one CTA per group, the bundle loop inside the CTA;
-the recurrence itself is ``cover_dp_block`` of ``csrc/cover_dp.cuh``).
+the recurrence itself is ``cover_dp_block`` of ``csrc/cover_dp.cuh``, on
+two dp rows that trade places each bundle).
 It takes a :class:`CoverBatch` — the groups concatenated without padding,
 with per-group offsets — and returns the concatenated ``dp`` rows and, when
 asked, the improvement bits, both bitwise equal to the host reference.
@@ -28,9 +29,18 @@ import torch
 
 from .cuda_lib import library
 
-#: dynamic shared memory a CTA may hold for its dp row: T <= 8192 (64 KB)
-#: keeps three CTAs resident per SM; wider groups run in global memory
-SMEM_ROW_BYTES = (8192 + 1) * 8
+#: dynamic shared memory a block may opt into on an H100 (sm_90)
+SMEM_OPTIN = 232_448
+#: the widest dp row (T + 1 doubles) that runs in shared memory: two of
+#: them take 131,088 B; wider groups run their two rows in global memory
+SMEM_DP_WIDTH = 8192 + 1
+
+
+def two_rows_smem(width: int) -> int:
+    """Dynamic shared memory of a ``cover_dp`` CTA whose dp rows are
+    ``width`` doubles: both rows, or 0 when they go to global memory (the
+    group's slice of the dp output and a scratch row)."""
+    return 16 * width if width <= SMEM_DP_WIDTH else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,17 +48,20 @@ class CoverBatch:
     """A ragged stack of cover-DP groups ``(bpods, costs, target)``.
 
     Host index arrays (numpy) plus one device copy of everything the kernel
-    reads: ``ints`` holds ``pods | b_off | targets | dp_off | bits_off``
-    (int64), ``costs`` the bundle costs (float64).  Group ``g`` owns bundles
-    ``b_off[g]:b_off[g+1]``, dp entries ``dp_off[g]:dp_off[g+1]`` (its
-    ``target + 1`` columns) and bits ``bits_off[g]:bits_off[g+1]``
-    (row-major ``(B_g, target + 1)``).
+    reads: ``ints`` holds ``pods | b_off | targets | dp_off | bits_off |
+    scr_off`` (int64), ``costs`` the bundle costs (float64).  Group ``g``
+    owns bundles ``b_off[g]:b_off[g+1]``, dp entries ``dp_off[g]:dp_off[g+1]``
+    (its ``target + 1`` columns), bits ``bits_off[g]:bits_off[g+1]``
+    (row-major ``(B_g, target + 1)``) and, when its two dp rows do not fit
+    shared memory (:func:`two_rows_smem`), the scratch row
+    ``scr_off[g]:scr_off[g+1]``.
     """
 
     b_off: np.ndarray
     targets: np.ndarray
     dp_off: np.ndarray
     bits_off: np.ndarray
+    scr_off: np.ndarray
     ints: torch.Tensor
     costs: torch.Tensor
 
@@ -65,15 +78,19 @@ class CoverBatch:
         dp_off = np.concatenate([[0], np.cumsum(targets + 1)]).astype(np.int64)
         bits_off = np.concatenate(
             [[0], np.cumsum(nb * (targets + 1))]).astype(np.int64)
+        wide = targets + 1 > SMEM_DP_WIDTH         # two_rows_smem(...) == 0
+        scr_off = np.concatenate(
+            [[0], np.cumsum(np.where(wide, targets + 1, 0))]).astype(np.int64)
         pods = np.concatenate([np.asarray(g[0], dtype=np.int64)
                                for g in groups] or [np.zeros(0, np.int64)])
         costs = np.concatenate([np.asarray(g[1], dtype=np.float64)
                                 for g in groups] or [np.zeros(0)])
         if np.any(pods < 1):
             raise ValueError("cover_dp: bundle pods must be >= 1")
-        ints = np.concatenate([pods, b_off, targets, dp_off, bits_off])
+        ints = np.concatenate([pods, b_off, targets, dp_off, bits_off,
+                               scr_off])
         return cls(b_off=b_off, targets=targets, dp_off=dp_off,
-                   bits_off=bits_off,
+                   bits_off=bits_off, scr_off=scr_off,
                    ints=torch.from_numpy(ints).to(device),
                    costs=torch.from_numpy(costs).to(device))
 
@@ -84,6 +101,13 @@ class CoverBatch:
     @property
     def n_bundles(self) -> int:
         return int(self.b_off[-1])
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of every CTA of the launch: two rows of
+        the widest group that runs in shared memory."""
+        fit = self.targets[self.targets + 1 <= SMEM_DP_WIDTH]
+        return two_rows_smem(int(fit.max()) + 1) if fit.size else 0
 
     def split(self, dp: np.ndarray, bits: Optional[np.ndarray],
               ) -> List:
@@ -125,22 +149,28 @@ def cover_dp(batch: CoverBatch, with_bits: bool = True,
     G = batch.n_groups
     if G == 0:
         return dp, bits
-    smem = min(int(batch.targets.max() + 1) * 8, SMEM_ROW_BYTES)
+    smem = batch.smem_bytes
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > optin:
         raise RuntimeError(f"cover_dp: {smem} bytes of shared memory per "
                            f"block exceed the device's {optin}")
+    n_scr = int(batch.scr_off[-1])
+    scratch = (torch.empty(n_scr, dtype=torch.float64, device=dev)
+               if n_scr else None)
     # int64 views into ``ints``: pods | b_off | targets | dp_off | bits_off
+    # | scr_off
     nb = batch.n_bundles
-    pods, b_off, targets, dp_off, bits_off = (
+    pods, b_off, targets, dp_off, bits_off, scr_off = (
         batch.ints.data_ptr() + 8 * o
-        for o in (0, nb, nb + G + 1, nb + 2 * G + 1, nb + 3 * G + 2))
+        for o in (0, nb, nb + G + 1, nb + 2 * G + 1, nb + 3 * G + 2,
+                  nb + 4 * G + 3))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().cover_dp_launch(
             pods, batch.costs.data_ptr(), b_off, targets, dp_off, bits_off,
-            dp.data_ptr(), bits.data_ptr() if with_bits else None,
-            G, smem, stream)
+            scr_off, dp.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            bits.data_ptr() if with_bits else None, G, smem, stream)
     if err != 0:
         raise RuntimeError(f"cover_dp: kernel launch failed with CUDA error "
                            f"{err}")

@@ -34,9 +34,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argument types of each launch function (pointers and the stream as
 #: c_void_p: ctypes would otherwise pass a Python int as a 32-bit int)
 LAUNCH_ARGTYPES = {
-    "cover_dp_launch": [_P] * 8 + [_I, _I, _P],
-    "fused_rows_launch": ([_P] * 5 + [_L, _L] + [_P] * 3 + [_L] * 4
-                          + [_P] * 7 + [_I, _I, _P, _P, _P]),
+    "cover_dp_launch": [_P] * 10 + [_I, _I, _P],
+    "fused_rows_launch": ([_P] * 8 + [_L, _L] + [_P] * 4 + [_L] * 4
+                          + [_P] * 8 + [_I, _I, _I, _P, _P, _P]),
     "score_launch": [_P] * 6 + [_I, _L, _P],
     "flash_attention_launch": [_P] * 5 + [_I] * 10 + [_P],
     "mamba_scan_launch": [_P] * 9 + [_I] * 5 + [_P],

@@ -7,7 +7,10 @@ decode DP with improvement bits and the backtrack — and returns each row's
 counts and status.  On a CUDA stack it is one launch of the hand-written
 kernel ``csrc/fused_rows.cu`` (one CTA per row, both cover DPs inside it
 through ``csrc/cover_dp.cuh``) per slice of rows; on a CPU stack it runs
-:func:`fused_rows_plain`, which the kernel is held to on the card.
+:func:`fused_rows_plain`, which the kernel is held to on the card.  Given
+``score_req``, each row also scores its own counts in the tail of its CTA
+(``csrc/score.cuh``, the order of :func:`~repro_torch.core.score.score_plain`):
+the golden rounds take their scores from here and launch no ``score``.
 
 The kernel reads only the prefix of the rate order that a row uses (the
 first ``max(k_ub + _CORE_PAD, _CORE_MIN)`` bundles, ``cum_c`` up to
@@ -33,8 +36,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .cover_dp import SMEM_ROW_BYTES, CoverBatch, cover_dp_plain
+from .cover_dp import SMEM_DP_WIDTH, CoverBatch, cover_dp_plain
 from .cuda_lib import library
+from .score import score_plain
 
 INFEASIBLE, FEASIBLE, TOO_WIDE = 0, 1, 2
 
@@ -51,7 +55,22 @@ POD_CLAMP = 1 << 21
 #: the kernel's clock64 stamps a row (``stages`` output): start, then the
 #: end of each stage below
 STAGES = ("saturation", "select", "sort", "sums", "lp", "core_dp", "kept",
-          "decode_dp", "backtrack")
+          "decode_dp", "backtrack", "score")
+#: the kernel's shared memory after the first dp row (``kWorkBytes``,
+#: ``kLpTableBytes`` of ``csrc/fused_rows.cu``): the work region, and the LP
+#: table, which holds the second dp row from the core DP on
+WORK_BYTES = PREFIX_CAP * (8 + 4 + 8 + 8 + 8)
+LP_TABLE_BYTES = SMEM_DP_WIDTH * 8
+
+
+def rows_smem(width_cap: int) -> Tuple[int, int]:
+    """``(dp_smem, total)`` of a ``fused_rows`` CTA whose dp rows are
+    ``width_cap`` doubles: the first row's bytes in shared memory (0 when
+    both rows go to global memory, wider than ``SMEM_DP_WIDTH``), and the
+    CTA's dynamic shared memory, that row 16-byte aligned, the work region
+    and the LP table (the second row)."""
+    dp_smem = 8 * width_cap if width_cap <= SMEM_DP_WIDTH else 0
+    return dp_smem, -(-dp_smem // 16) * 16 + WORK_BYTES + LP_TABLE_BYTES
 
 #: the host engine's keep test: cost + lp <= ub * KEEP_REL + KEEP_ABS
 KEEP_REL = 1.0 + 1e-12
@@ -139,27 +158,38 @@ def _check_out(name: str, t: Optional[torch.Tensor], dtype, shape, dev):
 def fused_rows(dm: DeviceMarket, coefs: torch.Tensor, actives: torch.Tensor,
                reqs: torch.Tensor, coarse: Tuple[int, int, int],
                max_req: int, bits_budget: int, *,
+               score_req: Optional[torch.Tensor] = None,
                paths: Optional[torch.Tensor] = None,
-               stages: Optional[torch.Tensor] = None,
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               stages: Optional[torch.Tensor] = None):
     """``(counts (R, N) int64, status (R,) uint8)`` of every row: ``coefs``
     ``(R, N)`` float64 objective rows, ``actives`` ``(R, N)`` bool
     (structural and not excluded), ``reqs`` ``(R,)`` int64 demands, each at
     most ``max_req``; ``coarse`` the ``(threshold, max_rows, gcd)`` triple.
+    With ``score_req`` (``(R,)`` float64, each row's decision demand), a
+    third tensor, ``(R,)`` float64: the pool score of each row's counts at
+    its ``score_req`` where the row is :data:`FEASIBLE`, else ``-inf``.
 
     CUDA: the rows go to the kernel in slices whose improvement bits stay
     under ``bits_budget`` bytes, one launch each, counted in
-    ``fused_rows.launches``; nothing is synchronised.  The kernel fills
-    ``paths`` (``(R,)`` uint8, one of ``PATH_*``) and ``stages`` (``(R,
-    len(STAGES) + 1)`` int64 clock64 stamps) when they are given.  CPU:
-    :func:`fused_rows_plain` (the outputs stay untouched)."""
+    ``fused_rows.launches`` (those that score also in
+    ``fused_rows.scoring_launches``); nothing is synchronised.  The kernel
+    fills ``paths`` (``(R,)`` uint8, one of ``PATH_*``) and ``stages``
+    (``(R, len(STAGES) + 1)`` int64 clock64 stamps) when they are given.
+    CPU: :func:`fused_rows_plain` (the outputs stay untouched)."""
     _check_rows(dm, coefs, actives, reqs)
     dev = coefs.device
     R = coefs.shape[0]
     _check_out("paths", paths, torch.uint8, (R,), dev)
     _check_out("stages", stages, torch.int64, (R, len(STAGES) + 1), dev)
+    if score_req is not None and (score_req.dtype != torch.float64
+                                  or tuple(score_req.shape) != (R,)
+                                  or score_req.device != dev):
+        raise TypeError(f"fused_rows: score_req must be float64 ({R},) on "
+                        f"{dev}, got {score_req.dtype} "
+                        f"{tuple(score_req.shape)} on {score_req.device}")
     if dev.type == "cpu":
-        return fused_rows_plain(dm, coefs, actives, reqs, coarse, max_req)
+        return fused_rows_plain(dm, coefs, actives, reqs, coarse, max_req,
+                                score_req=score_req)
     if dev.type != "cuda":
         raise ValueError(f"fused_rows: tensors on {dev}; expected CUDA or "
                          "CPU")
@@ -171,11 +201,16 @@ def fused_rows(dm: DeviceMarket, coefs: torch.Tensor, actives: torch.Tensor,
     if B >= 2 ** 31 or R >= 2 ** 31:
         raise ValueError("fused_rows: more than 2**31 bundles or rows")
     coefs, actives, reqs = (t.contiguous() for t in (coefs, actives, reqs))
+    scoring = score_req is not None
+    if scoring:
+        score_req = score_req.contiguous()
     thr, maxr, gcd = (int(x) for x in coarse)
     width_cap = dp_width(max_req, (thr, maxr, gcd)) + 1
-    smem = width_cap * 8 if width_cap * 8 <= SMEM_ROW_BYTES else 0
+    dp_smem, smem = rows_smem(width_cap)
     counts = torch.empty((R, N), dtype=torch.int64, device=dev)
     status = torch.empty(R, dtype=torch.uint8, device=dev)
+    scores = (torch.empty(R, dtype=torch.float64, device=dev) if scoring
+              else None)
     step = max(1, bits_budget // max(1, B * width_cap))
     lib = library()
     with torch.cuda.device(dev):
@@ -187,30 +222,39 @@ def fused_rows(dm: DeviceMarket, coefs: torch.Tensor, actives: torch.Tensor,
             keep = torch.empty(n * B, dtype=torch.uint8, device=dev)
             bits = torch.empty(n * B * width_cap, dtype=torch.uint8,
                                device=dev)
-            dp_gl = (None if smem else
-                     torch.empty(n * width_cap, dtype=torch.float64,
+            dp_gl = (None if dp_smem else
+                     torch.empty(n * 2 * width_cap, dtype=torch.float64,
                                  device=dev))
             err = lib.fused_rows_launch(
-                dm.pods.data_ptr(), dm.bound.data_ptr(),
+                dm.pods.data_ptr(), dm.bound.data_ptr(), dm.perf.data_ptr(),
+                dm.price.data_ptr(), dm.podsf.data_ptr(),
                 dm.b_item.data_ptr(), dm.b_pods.data_ptr(),
                 dm.b_copies.data_ptr(), N, B,
                 coefs[lo].data_ptr(), actives[lo].data_ptr(),
-                reqs[lo:].data_ptr(), thr, maxr, gcd, width_cap,
+                reqs[lo:].data_ptr(),
+                score_req[lo:].data_ptr() if scoring else None,
+                thr, maxr, gcd, width_cap,
                 fs.data_ptr(), is_.data_ptr(), keep.data_ptr(),
                 None if dp_gl is None else dp_gl.data_ptr(),
                 bits.data_ptr(), counts[lo].data_ptr(),
-                status[lo:].data_ptr(), n, smem, stream,
+                status[lo:].data_ptr(),
+                scores[lo:].data_ptr() if scoring else None,
+                n, dp_smem, smem, stream,
                 None if paths is None else paths[lo:].data_ptr(),
                 None if stages is None else stages[lo].data_ptr())
             if err != 0:
                 raise RuntimeError(f"fused_rows: kernel launch failed with "
                                    f"CUDA error {err}")
             fused_rows.launches += 1
-    return counts, status
+            if scoring:
+                fused_rows.scoring_launches += 1
+    return (counts, status, scores) if scoring else (counts, status)
 
 
-#: kernel launches since the last reset (the wrapper is the only writer)
+#: kernel launches since the last reset (the wrapper is the only writer),
+#: and of those, the launches whose rows scored their counts
 fused_rows.launches = 0
+fused_rows.scoring_launches = 0
 
 
 def seq_cumsum(v: torch.Tensor) -> torch.Tensor:
@@ -294,15 +338,18 @@ def fused_rows_plain(dm: DeviceMarket, coefs: torch.Tensor,
                      actives: torch.Tensor, reqs: torch.Tensor,
                      coarse: Tuple[int, int, int], max_req: int,
                      info: Optional[List[dict]] = None,
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     score_req: Optional[torch.Tensor] = None):
     """The kernel's function, row by row in torch ops on the rows' device
     (sums on CPU copies, the cover DPs through ``cover_dp_plain``), over
-    the whole rate order.  With ``info`` a list, one dict per row is
-    appended: the DP bundle count ``n``, the core-DP length ``core`` (0
-    when the bound did not trigger), the kept count ``kept``, the DP
-    target ``eff_res`` (0 when the row exited before the DP) and, for a
-    row that reached the rate order, its ``residual`` and its DP bundles'
-    rate keys ``rate`` and pod sizes ``pods`` in market order (NumPy)."""
+    the whole rate order; with ``score_req``, also the rows' scores
+    (:func:`~repro_torch.core.score.score_plain` of the counts, ``-inf``
+    where a row is not :data:`FEASIBLE`).  With ``info`` a list, one dict
+    per row is appended: the DP bundle count ``n``, the core-DP length
+    ``core`` (0 when the bound did not trigger), the kept count ``kept``,
+    the DP target ``eff_res`` (0 when the row exited before the DP) and,
+    for a row that reached the rate order, its ``residual`` and its DP
+    bundles' rate keys ``rate`` and pod sizes ``pods`` in market order
+    (NumPy)."""
     # deferred: backend imports this module; the host engine's prune
     # constants live there
     from .backend import _CORE_MIN, _CORE_PAD, _CORE_TRIGGER
@@ -383,4 +430,8 @@ def fused_rows_plain(dm: DeviceMarket, coefs: torch.Tensor,
         taken = bidx[kept[torch.from_numpy(take).to(dev)]]
         counts[r].index_add_(0, dm.b_item[taken], dm.b_copies[taken])
         status[r] = FEASIBLE
-    return counts, status
+    if score_req is None:
+        return counts, status
+    s = score_plain(counts, dm.perf, dm.price, dm.podsf, score_req)
+    return counts, status, torch.where(status == FEASIBLE, s,
+                                       torch.full_like(s, float("-inf")))

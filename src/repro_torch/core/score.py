@@ -10,6 +10,11 @@ repeats op for op, so the two are bitwise equal.  That order is not the
 host's ``counts @ perf``: the score only steers the golden bracket on the
 card, and the host rescores every pool exactly.
 
+The CTA's work is ``score_block`` of ``csrc/score.cuh``, which the golden
+rows of ``csrc/fused_rows.cu`` also run in their own tail
+(:func:`~repro_torch.core.fused_rows.fused_rows` with ``score_req``): the
+fused plane's golden loop launches no ``score`` of its own.
+
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs :func:`score_plain`.
 """

@@ -4,7 +4,9 @@
 // Replaces the device row solver of FusedJaxBackend._solver_core
 // (src/repro/core/backend.py: prep's consumers solve_row / solve_rows) and,
 // inside it, the two calls of the TPU kernel _cover_kernel (the core-bound
-// DP and the decode DP), which here are cover_dp_block of cover_dp.cuh.
+// DP and the decode DP), which here are cover_dp_block of cover_dp.cuh, and
+// the TPU kernel _score_kernel, which here is score_block of score.cuh in
+// the tail of each golden row.
 // One row is one host engine row of repro_torch.core.ilp._solve_rows, stage
 // for stage:
 //   1. saturation: neg = coef < 0 & active; sat = bound where neg;
@@ -24,7 +26,11 @@
 //      bundles at eff_res, and the keep test again with it when tighter;
 //   5. the kept bundles in market order;
 //   6. the decode DP with improvement bits over them at eff_res;
-//   7. the backtrack (one warp) adding each taken bundle's copies to sat.
+//   7. the backtrack (one warp) adding each taken bundle's copies to sat;
+//   8. when the caller asks for scores (the golden rows), the pool score of
+//      the row's counts at its decision's demand score_req[r], or -inf
+//      unless the row is FEASIBLE: every exit reaches this tail, so its
+//      barriers stay uniform across the CTA.
 // The DP runs at width eff_res + 1, as the host engine does: the
 // reference's tier ladder and shape buckets exist only for XLA's static
 // shapes.
@@ -56,9 +62,13 @@
 // A bundle's LP bound depends on it only through rb = max(residual - pods,
 // 0), so for residuals below kLpTable it is computed once per rb into a
 // shared table that the LP pass reads. The kept bundles are staged (pods
-// in DP units, cost, copies, item) for the decode DP, which reads one
-// bundle a step with every thread, and the backtrack (one warp, 32 bits
-// rows a read).
+// in DP units, cost, copies, item) for the decode DP and the backtrack
+// (one warp, 32 bits rows a read). Both DPs run on two dp rows
+// (cover_dp.cuh), their bundles staged a chunk at a time through a small
+// static buffer: the first row in front of the work region, the second
+// where the LP table was, since stage 3d is the table's last reader; when
+// the rows do not fit shared memory, both are the row's own two rows of
+// `dp_global`.
 //
 // Where bitwise parity with the host could break, and what this does:
 //   * FMA contraction: bcost, lp, the keep thresholds are products feeding
@@ -75,8 +85,8 @@
 //   * parallel blocks: no dp row, bracket or counter crosses CTAs.
 //
 // What bounds it on an H100: the chains, not bytes or flops. Per row the
-// two DPs are chains of bundle steps ending in barriers, now the longest
-// stage; the O(n) stages are a few coalesced passes at 768 threads. A
+// two DPs are chains of bundle steps, one barrier each, still the longest
+// stages; the O(n) stages are a few coalesced passes at 768 threads. A
 // row's inputs are N coefficients and flags, its output N counts. Rows
 // are independent, so a launch fills the SMs with as many rows as the
 // caller stacks (a prescan is D x G rows, a golden round D).
@@ -84,12 +94,13 @@
 // `stages`, when not null, receives kStages clock64() stamps a row, taken
 // by thread 0 after the barrier that ends each stage: start, saturation,
 // select (compaction, histogram, cut, candidates), sort, sums, LP, core
-// DP, kept, decode DP, backtrack. A row that exits early stamps the rest
-// at its exit.
+// DP, kept, decode DP, backtrack, score. A row that exits early stamps
+// the rest but the score at its exit.
 
 #include <stdint.h>
 
 #include "cover_dp.cuh"
+#include "score.cuh"
 
 namespace {
 
@@ -102,7 +113,7 @@ constexpr int kBins = 4096;
 constexpr int kCap = 2048;
 // residuals up to which the LP bound per rb = residual - pods is tabled
 constexpr long long kLpTable = 8192;
-constexpr int kStages = 10;
+constexpr int kStages = 11;
 constexpr int kSlabs = 7;      // B-long 8-byte scratch slabs a row
 constexpr long long kPodClamp = 1ll << 21;   // residuals the histogram bounds
 
@@ -127,8 +138,8 @@ constexpr unsigned char kPathPrefix = 1;   // candidates sorted in shared
 constexpr unsigned char kPathFull = 2;     // all n sorted in global
 
 // shared memory after the dp row: a work region holding the histogram,
-// then (aliasing it) the sorted prefix, then the staged kept bundles; and
-// the LP table
+// then (aliasing it) the sorted prefix, then the staged kept bundles, then
+// the score's partial sums; and the LP table, then the second dp row
 constexpr int kHistBytes = kBins * (4 + 4);
 constexpr int kWorkBytes = kCap * (8 + 4 + 8 + 8 + 8);
 // a staged kept bundle: pods / eff_g, cost, copies (8 bytes each), item
@@ -136,11 +147,18 @@ constexpr int kKeptBytes = 8 + 8 + 8 + 4;
 // loads a lane issues ahead of their use in the O(n) passes
 constexpr int kBatch = 4;
 static_assert(kHistBytes <= kWorkBytes, "histogram outgrows the work region");
-constexpr int kLpTableBytes = kLpTable * 8;
+// the LP table, and the second dp row of any row that runs in shared
+// memory (width_cap <= kLpTable + 1, core/cover_dp.py SMEM_DP_WIDTH)
+constexpr int kLpTableBytes = (kLpTable + 1) * 8;
+static_assert(3 * kubepacs::kScoreLanes * 8 <= kWorkBytes,
+              "the score's partial sums outgrow the work region");
 
 struct Market {
   const long long* pods;      // (N,)
   const long long* bound;     // (N,)
+  const double* perf;         // (N,) the score's market vectors
+  const double* price;        // (N,)
+  const double* podsf;        // (N,) pods as float64
   const long long* b_item;    // (B,)
   const long long* b_pods;    // (B,)
   const long long* b_copies;  // (B,)
@@ -269,16 +287,19 @@ __device__ long long warp_offset(const long long* counts, long long* total) {
   return before;
 }
 
-__global__ void __launch_bounds__(kRowThreads)
-fused_rows_kernel(Market m, const double* __restrict__ coefs,
-                  const unsigned char* __restrict__ actives,
-                  const long long* __restrict__ reqs, long long thr,
-                  long long maxr, long long gcd, long long width_cap,
-                  double* fscratch, int* iscratch, unsigned char* keep,
-                  double* dp_global, unsigned char* bits,
-                  long long* counts_out, unsigned char* feas_out,
-                  int dp_smem, unsigned char* paths, long long* stages) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// Stages 1-7 of row blockIdx.x, with the whole CTA (every thread must call
+// it); returns the row's status, the same in every thread. `work` is its
+// work region in shared memory, after the first dp row (`dp_smem` bytes,
+// 0 when both rows are the row's two rows of `dp_global`), the LP table
+// after it; `st` its clock64 stamps or null.
+__device__ __forceinline__ unsigned char solve_row(
+    const Market& m, const double* __restrict__ coefs,
+    const unsigned char* __restrict__ actives,
+    const long long* __restrict__ reqs, long long thr, long long maxr,
+    long long gcd, long long width_cap, double* fscratch, int* iscratch,
+    unsigned char* keep, double* dp_global, unsigned char* bits,
+    long long* counts_out, unsigned char* feas_out, int dp_smem,
+    unsigned char* work, unsigned char* paths, long long* st) {
   __shared__ long long red[kRowWarps];
   __shared__ long long wcount[kRowWarps];
   __shared__ unsigned long long wmin[kRowWarps], wmax[kRowWarps];
@@ -292,7 +313,6 @@ fused_rows_kernel(Market m, const double* __restrict__ coefs,
   const double* coef = coefs + r * N;
   const unsigned char* active = actives + r * N;
   long long* counts = counts_out + r * N;
-  long long* st = stages ? stages + r * kStages : nullptr;
   auto stamp = [&](int s) {
     if (st && tid == 0) st[s] = clock64();
   };
@@ -300,13 +320,32 @@ fused_rows_kernel(Market m, const double* __restrict__ coefs,
     if (tid == 0) {
       if (st) {
         const long long c = clock64();
-        for (int s = 2; s < kStages; ++s) st[s] = c;
+        for (int s = 2; s < kStages - 1; ++s) st[s] = c;
       }
       if (paths) paths[r] = kPathNone;
       feas_out[r] = status;
     }
+    return status;
   };
-  stamp(0);
+  double* lp_table = reinterpret_cast<double*>(work + kWorkBytes);
+  // the two dp rows: the first in front of the work region, the second
+  // where the LP table is (free from the core DP on); or both in global
+  // memory. Two calls of the DP, so that the shared one compiles to shared
+  // loads and stores
+  double* row_s = reinterpret_cast<double*>(work - ((dp_smem + 15) & ~15));
+  double* row_g = dp_global + r * 2 * width_cap;
+  __shared__ kubepacs::Stage stage;   // the DPs' staged bundles
+  auto cover = [&](const auto& bundles, long long nb, long long target,
+                   unsigned char* bits_rows) {
+    if (dp_smem) {
+      kubepacs::cover_dp_block<kRowThreads>(bundles, nb, target, row_s,
+                                            lp_table, bits_rows, stage);
+    } else {
+      kubepacs::cover_dp_block<kRowThreads>(bundles, nb, target, row_g,
+                                            row_g + width_cap, bits_rows,
+                                            stage);
+    }
+  };
 
   // -- 1. saturation ------------------------------------------------------
   long long cov = 0, cap = 0;
@@ -352,10 +391,6 @@ fused_rows_kernel(Market m, const double* __restrict__ coefs,
   int* ibuf0 = ip + B;
   int* ibuf1 = ip + 2 * B;
   unsigned char* kp = keep + r * B;
-  double* row = dp_smem ? reinterpret_cast<double*>(smem)
-                        : dp_global + r * width_cap;
-  unsigned char* work = smem + ((dp_smem + 15) & ~15);
-  double* lp_table = reinterpret_cast<double*>(work + kWorkBytes);
   unsigned* hist_count = reinterpret_cast<unsigned*>(work);
   unsigned* hist_pods = reinterpret_cast<unsigned*>(work + kBins * 4);
   // A bin's pod sum only has to be compared with the residual: each bundle
@@ -727,9 +762,8 @@ fused_rows_kernel(Market m, const double* __restrict__ coefs,
   if (n_keep > kCoreTrigger) {
     long long K = k_ub + kCorePad > kCoreMin ? k_ub + kCorePad : kCoreMin;
     if (K > n) K = n;
-    kubepacs::cover_dp_block<kRowThreads>(
-        SortedBundles{p_sorted, c_sorted, eff_g}, K, eff_res, row, nullptr);
-    const double core_ub = row[eff_res];
+    cover(SortedBundles{p_sorted, c_sorted, eff_g}, K, eff_res, nullptr);
+    const double core_ub = (dp_smem ? row_s : row_g)[eff_res];
     if (core_ub < ub) {
       const double core_keep = core_ub * kKeepRel + kKeepAbs;
       long long kc = 0;
@@ -787,8 +821,7 @@ fused_rows_kernel(Market m, const double* __restrict__ coefs,
 
   // -- 6. decode DP with improvement bits ----------------------------------
   unsigned char* rbits = bits + r * B * width_cap;
-  kubepacs::cover_dp_block<kRowThreads>(KeptBundles{k_pods, k_cost}, kept_n,
-                                        eff_res, row, rbits);
+  cover(KeptBundles{k_pods, k_cost}, kept_n, eff_res, rbits);
   stamp(8);
 
   // -- 7. backtrack and scatter onto sat (warp 0) ----------------------------
@@ -816,6 +849,45 @@ fused_rows_kernel(Market m, const double* __restrict__ coefs,
   }
   __syncthreads();
   stamp(9);
+  return kFeasible;
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+fused_rows_kernel(Market m, const double* __restrict__ coefs,
+                  const unsigned char* __restrict__ actives,
+                  const long long* __restrict__ reqs,
+                  const double* __restrict__ score_req, long long thr,
+                  long long maxr, long long gcd, long long width_cap,
+                  double* fscratch, int* iscratch, unsigned char* keep,
+                  double* dp_global, unsigned char* bits,
+                  long long* counts_out, unsigned char* feas_out,
+                  double* score_out, int dp_smem, unsigned char* paths,
+                  long long* stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long r = blockIdx.x;
+  const int tid = threadIdx.x;
+  long long* st = stages ? stages + r * kStages : nullptr;
+  if (st && tid == 0) st[0] = clock64();
+  unsigned char* work = smem + ((dp_smem + 15) & ~15);
+  const unsigned char status = solve_row(
+      m, coefs, actives, reqs, thr, maxr, gcd, width_cap, fscratch,
+      iscratch, keep, dp_global, bits, counts_out, feas_out, dp_smem, work,
+      paths, st);
+
+  // -- 8. pool score (golden rows) -----------------------------------------
+  // status is uniform, so the score's barriers are; the work region is
+  // free (the backtrack's last reads end at a barrier)
+  if (score_out) {
+    double e = -CUDART_INF;
+    if (status == kFeasible) {
+      __syncthreads();      // every thread's counts writes before the reads
+      e = kubepacs::score_block<kRowThreads>(
+          counts_out + r * m.n_items, m.perf, m.price, m.podsf, score_req[r],
+          m.n_items, reinterpret_cast<double*>(work));
+    }
+    if (tid == 0) score_out[r] = e;
+  }
+  if (st && tid == 0) st[kStages - 1] = clock64();
 }
 
 }  // namespace
@@ -823,30 +895,45 @@ fused_rows_kernel(Market m, const double* __restrict__ coefs,
 // Launches one CTA of 768 threads per row on `stream`. Scratch, owned by
 // the caller: `fscratch` n_rows * 7 * B doubles, `iscratch` n_rows * 3 * B
 // ints, `keep` n_rows * B bytes, `bits` n_rows * B * width_cap bytes, and
-// `dp_global` n_rows * width_cap doubles unless width_cap * 8 <= smem_bytes
-// (then the dp row sits in dynamic shared memory and it may be null).
-// Optional outputs (null to skip): `paths` one byte a row (0 no prune, 1
-// prefix path, 2 full path), `stages` kStages clock64 stamps a row.
-// Returns the CUDA error code of the launch (0 on success).
+// `dp_global` n_rows * 2 * width_cap doubles unless `dp_smem` is not 0
+// (then it is width_cap * 8, the rows sit in dynamic shared memory and it
+// may be null). `smem_total` is the dynamic shared memory of a CTA, the dp
+// row (16-byte aligned), the work region and the LP table
+// (core/fused_rows.py rows_smem). `score_req` and `score_out` (n_rows
+// float64 each; the market's perf, price, podsf are then read) ask for the
+// pool score of each row. Optional outputs (null to skip): `paths` one
+// byte a row (0 no prune, 1 prefix path, 2 full path), `stages` kStages
+// clock64 stamps a row. Returns the CUDA error code of the launch (0 on
+// success); cudaErrorInvalidValue when the sizes disagree with the
+// kernel's regions.
 extern "C" int fused_rows_launch(
-    const long long* pods, const long long* bound, const long long* b_item,
+    const long long* pods, const long long* bound, const double* perf,
+    const double* price, const double* podsf, const long long* b_item,
     const long long* b_pods, const long long* b_copies, long long n_items,
     long long n_bundles, const double* coefs, const unsigned char* actives,
-    const long long* reqs, long long thr, long long maxr, long long gcd,
-    long long width_cap, double* fscratch, int* iscratch,
-    unsigned char* keep, double* dp_global, unsigned char* bits,
-    long long* counts_out, unsigned char* feas_out, int n_rows,
-    int smem_bytes, void* stream, unsigned char* paths, long long* stages) {
+    const long long* reqs, const double* score_req, long long thr,
+    long long maxr, long long gcd, long long width_cap, double* fscratch,
+    int* iscratch, unsigned char* keep, double* dp_global,
+    unsigned char* bits, long long* counts_out, unsigned char* feas_out,
+    double* score_out, int n_rows, int dp_smem, int smem_total,
+    void* stream, unsigned char* paths, long long* stages) {
   if (n_rows <= 0) return 0;
-  const int dp_smem = width_cap * 8 <= smem_bytes ? smem_bytes : 0;
-  const int total = ((dp_smem + 15) & ~15) + kWorkBytes + kLpTableBytes;
+  const bool rows_fit = dp_smem == 0 || (width_cap * 8 <= dp_smem &&
+                                         width_cap * 8 <= kLpTableBytes);
+  if (!rows_fit || (score_out && !score_req) ||
+      smem_total != ((dp_smem + 15) & ~15) + kWorkBytes + kLpTableBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      fused_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, total);
+      fused_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Market m{pods, bound, b_item, b_pods, b_copies, n_items, n_bundles};
-  fused_rows_kernel<<<n_rows, kRowThreads, total,
+  const Market m{pods,   bound,    perf,    price,   podsf,
+                 b_item, b_pods,   b_copies, n_items, n_bundles};
+  fused_rows_kernel<<<n_rows, kRowThreads, smem_total,
                       static_cast<cudaStream_t>(stream)>>>(
-      m, coefs, actives, reqs, thr, maxr, gcd, width_cap, fscratch, iscratch,
-      keep, dp_global, bits, counts_out, feas_out, dp_smem, paths, stages);
+      m, coefs, actives, reqs, score_req, thr, maxr, gcd, width_cap,
+      fscratch, iscratch, keep, dp_global, bits, counts_out, feas_out,
+      score_out, dp_smem, paths, stages);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,11 +11,10 @@
 // every pool exactly, so a score that differs from the host's in the last
 // bit can cost a counted fallback solve, never a selection.
 //
-// Summation order, fixed so that score_plain reproduces it bitwise: thread
-// t of kThreads adds the products of columns t, t + kThreads, ... left to
-// right (columns past N add 0.0 * 0.0), then the kThreads partial sums are
-// folded pairwise, partial[t] += partial[t + s] for s = kThreads/2 .. 1.
-// Built with --fmad=false: each product is rounded before its add.
+// The summation order (fixed, so that score_plain reproduces it bitwise)
+// and the block that computes the score live in score.cuh (score_block),
+// which the golden rows of fused_rows.cu run in their own tail too: the
+// fused plane's golden loop launches no score of its own.
 //
 // What bounds it on an H100: bytes. Each decision reads N counts (int64) and
 // the three N-long market vectors (shared by every decision, so L2-resident)
@@ -25,9 +24,11 @@
 
 #include <cuda_runtime.h>
 
+#include "score.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kubepacs::kScoreLanes;
 
 __global__ void __launch_bounds__(kThreads)
 score_kernel(const long long* __restrict__ counts,
@@ -36,39 +37,12 @@ score_kernel(const long long* __restrict__ counts,
              const double* __restrict__ pods,
              const double* __restrict__ req,
              double* __restrict__ out, long long n) {
-  __shared__ double s_sp[kThreads];
-  __shared__ double s_sc[kThreads];
-  __shared__ double s_sq[kThreads];
+  __shared__ double red[3 * kubepacs::kScoreLanes];
   const int d = blockIdx.x;
-  const int t = threadIdx.x;
-  const long long* c = counts + static_cast<long long>(d) * n;
-  double sp = 0.0, sc = 0.0, sq = 0.0;
-  for (long long k = 0; k < n; k += kThreads) {
-    const long long j = k + t;
-    const bool in = j < n;
-    const double cj = in ? static_cast<double>(c[j]) : 0.0;
-    sp = sp + cj * (in ? perf[j] : 0.0);
-    sc = sc + cj * (in ? price[j] : 0.0);
-    sq = sq + cj * (in ? pods[j] : 0.0);
-  }
-  s_sp[t] = sp;
-  s_sc[t] = sc;
-  s_sq[t] = sq;
-  __syncthreads();
-  for (int s = kThreads / 2; s >= 1; s >>= 1) {
-    if (t < s) {
-      s_sp[t] = s_sp[t] + s_sp[t + s];
-      s_sc[t] = s_sc[t] + s_sc[t + s];
-      s_sq[t] = s_sq[t] + s_sq[t + s];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    const double tsp = s_sp[0], tsc = s_sc[0], tsq = s_sq[0];
-    const double rq = req[d];
-    const bool ok = (tsq >= rq) && (tsc > 0.0) && (tsq > 0.0);
-    out[d] = ok ? (tsp / tsc) * (rq / tsq) : 0.0;
-  }
+  const double e = kubepacs::score_block<kThreads>(
+      counts + static_cast<long long>(d) * n, perf, price, pods, req[d], n,
+      red);
+  if (threadIdx.x == 0) out[d] = e;
 }
 
 }  // namespace

@@ -22,7 +22,8 @@ from repro.core import make_backend as ref_make_backend
 from repro_torch import resolve_device
 from repro_torch.core import NumpyBackend, TorchBackend, make_backend
 from repro_torch.core import backend as backend_mod
-from repro_torch.core.cover_dp import CoverBatch, cover_dp
+from repro_torch.core.cover_dp import (SMEM_DP_WIDTH, SMEM_OPTIN,
+                                       CoverBatch, cover_dp, two_rows_smem)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TORCH_CPU = TorchBackend("cpu")
@@ -128,6 +129,28 @@ def test_cpu_batch_runs_plain_version_and_counts_no_launch():
     assert bits.numel() == sum(len(p) * (t + 1) for p, _c, t in groups)
     dp_v, none = cover_dp(batch, False)
     assert none is None and torch.equal(dp_v, dp)
+
+
+def test_two_dp_rows_fit_shared_memory_or_go_global():
+    """``cover_dp``'s launch sizing: a CTA holds two rows of the widest
+    group whose rows fit (T <= 8192: 131,088 B, under the H100's opt-in;
+    the widest fleet-tick dispatch's T = 5745: 91,936 B), and a wider
+    group (T = 20,000) gets a scratch row in global memory instead."""
+    assert two_rows_smem(SMEM_DP_WIDTH) == 131_088 <= SMEM_OPTIN
+    assert two_rows_smem(5745 + 1) == 91_936
+    assert two_rows_smem(20_001) == 0
+    groups = [(np.array([3, 7]), np.array([1.0, 0.5]), 20_000),
+              (np.array([2, 5]), np.array([1.0, np.inf]), 5745),
+              (np.array([1]), np.array([0.5]), 8192),
+              (np.zeros(0, np.int64), np.zeros(0), 100)]
+    batch = CoverBatch.build(groups, torch.device("cpu"))
+    assert batch.smem_bytes == two_rows_smem(8193)
+    assert np.diff(batch.scr_off).tolist() == [20_001, 0, 0, 0]
+    n_ints = batch.n_bundles + 5 * batch.n_groups + 4
+    assert batch.ints.numel() == n_ints
+    assert batch.ints[-batch.n_groups - 1:].tolist() == batch.scr_off.tolist()
+    _assert_bitwise(TORCH_CPU.cover_bits(groups),
+                    NumpyBackend().cover_bits(groups))
 
 
 def test_cover_batch_rejects_bad_groups():

@@ -1,7 +1,8 @@
 """The port's fused decision plane (``torch:fused``) against the reference.
 
 On this host ``make_backend("torch:fused:cpu")`` runs the row solver's and
-the score's plain versions (``fused_rows_plain``, ``score_plain``); the
+the score's plain versions (``fused_rows_plain``, ``score_plain``; the
+golden rows score their own pools, as the kernel's tail does); the
 batched guarded GSS through it must select bitwise what the reference's
 NumPy engine, ``jax:fused`` (scan path) and ``jax:fused:pallas`` (both
 Pallas kernels in interpret mode) select, with zero host-fallback solves.
@@ -10,6 +11,7 @@ The CUDA kernels themselves are held to those plain versions on the card by
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -19,12 +21,15 @@ import repro.core as ref
 import repro_torch.core as port
 from repro.core.gss import bracketed_gss_many as ref_gss_many
 from repro_torch.core import backend as backend_mod
-from repro_torch.core.fused_rows import (FEASIBLE, INFEASIBLE, PATH_FULL,
+from repro_torch.core import score as score_mod
+from repro_torch.core.cover_dp import SMEM_DP_WIDTH, SMEM_OPTIN
+from repro_torch.core.fused_rows import (FEASIBLE, INFEASIBLE,
+                                         LP_TABLE_BYTES, PATH_FULL,
                                          PATH_NONE, PATH_PREFIX, POD_CLAMP,
-                                         PREFIX_CAP, TOO_WIDE, DeviceMarket,
-                                         dp_width, fused_rows,
+                                         PREFIX_CAP, TOO_WIDE, WORK_BYTES,
+                                         DeviceMarket, dp_width, fused_rows,
                                          fused_rows_plain, prefix_plan,
-                                         prefix_plans,
+                                         prefix_plans, rows_smem,
                                          seq_cumsum)
 from repro_torch.core.gss import bracketed_gss_many as port_gss_many
 from repro_torch.core.score import score, score_plain
@@ -236,6 +241,100 @@ def test_score_plain_equals_reference_formula(n_items):
     np.testing.assert_allclose(got[ok], want[ok], rtol=1e-12, atol=0)
     assert np.array_equal(got, score_plain(t(counts), t(perf), t(price),
                                            t(pods), t(req)).numpy())
+
+
+# -- the pool score, folded into the golden rows ------------------------------
+
+def _scored_stack(seed):
+    """``(dm, coefs, actives, reqs, score_req, max_req)``: a stack of rows
+    through every exit of the row solver, each with its decision's demand
+    to be scored at — the saturation exit (alpha = 1: every coefficient
+    negative), an inactive decision's ``req = 0`` re-solve scored at its
+    demand, an infeasible demand (a small active set), a demand wider
+    than ``max_req`` and rows that reach the decode DP."""
+    rng = np.random.default_rng(seed)
+    _p, m = _port(gcd_market(rng, n_items=30))
+    st = m.structural
+    small = st & (np.arange(m.n) < 3)
+    alphas = np.array([1.0, 0.3, 0.5, 0.0, 0.05, 0.0])  # 0: nothing covered
+    actives = np.stack([st] * len(alphas))
+    actives[2] = small
+    max_req = 400
+    reqs = np.array([300, 0, int((m.pods * m.bound)[small].sum()) + 1,
+                     max_req + 50, 250, 120])
+    score_req = reqs.astype(np.float64)
+    score_req[1] = 300.0                   # the inactive decision's demand
+    t = torch.from_numpy
+    return (DeviceMarket.build(m, torch.device("cpu")),
+            t(m.coefficients(alphas)), t(actives), t(reqs), t(score_req),
+            max_req)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rows_score_their_counts_where_feasible(seed):
+    """Row by row, the folded score is ``score_plain`` of the row's counts
+    at its ``score_req`` where the row is FEASIBLE, else -inf, through
+    every exit; the wrapper's CPU path returns the same three tensors."""
+    dm, coefs, actives, reqs, score_req, max_req = _scored_stack(seed)
+    exact = (2 ** 62, 1, 1)
+    info = []
+    counts, status, scores = fused_rows_plain(
+        dm, coefs, actives, reqs, exact, max_req, info, score_req=score_req)
+    assert status.tolist()[:4] == [FEASIBLE, FEASIBLE, INFEASIBLE, TOO_WIDE]
+    assert [r["eff_res"] for r in info[:2]] == [0, 0]      # saturation exits
+    assert all(r["kept"] > 0 for r in info[4:])            # decode DP rows
+    assert status.tolist()[4:] == [FEASIBLE, FEASIBLE]
+    for r in range(len(reqs)):
+        want = (score_plain(counts[r:r + 1], dm.perf, dm.price, dm.podsf,
+                            score_req[r:r + 1])[0]
+                if status[r] == FEASIBLE else torch.tensor(float("-inf"),
+                                                           dtype=torch.float64))
+        assert scores[r].numpy().tobytes() == want.numpy().tobytes()
+    assert (scores[4:] > 0).all()
+    got = fused_rows(dm, coefs, actives, reqs, exact, max_req, 1 << 20,
+                     score_req=score_req)
+    assert all(torch.equal(a, b) for a, b in zip(got, (counts, status,
+                                                       scores)))
+    assert len(fused_rows(dm, coefs, actives, reqs, exact, max_req,
+                          1 << 20)) == 2
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_golden_loop_launches_no_standalone_score(seed, monkeypatch):
+    """With the standalone ``score`` made to raise wherever the port holds
+    it, a fused batch still selects bitwise what the reference's NumPy
+    engine selects: the golden rounds take their scores from the rows."""
+    def no_launch(*_args, **_kw):
+        raise AssertionError("the golden loop called the standalone score")
+
+    for mod in list(sys.modules.values()):
+        if (getattr(mod, "__name__", "").startswith("repro_torch")
+                and getattr(mod, "score", None) is score_mod.score):
+            monkeypatch.setattr(mod, "score", no_launch)
+    rng = np.random.default_rng(300 + seed)
+    be = port.make_backend("torch:fused:cpu")
+    for _ in range(4):
+        items = random_market(rng)
+        reqs = [int(rng.integers(1, 90)) for _ in range(3)]
+        excludes = [random_exclude(rng, len(items)) for _ in reqs]
+        got_r, got_p = _both(items, reqs, excludes, REF_NUMPY, be)
+        assert got_r == got_p
+    assert be.fused_records > 0
+    assert be.device_cache_info()["fallback_solves"] == 0
+
+
+def test_rows_smem_fits_the_widest_row_and_goes_global_beyond():
+    """The launch sizing of ``fused_rows``: at the widest ``width_cap``
+    that the coarsening allows (8193: gcd mode tops out at the threshold)
+    the CTA stays under the H100's opt-in; the LP table holds the second
+    row; a T = 20,000 row puts both rows in global memory."""
+    widest = dp_width(10 ** 6, (8192, 4096, 250)) + 1
+    assert widest == SMEM_DP_WIDTH == 8193
+    dp_smem, total = rows_smem(widest)
+    assert dp_smem == 8 * widest and LP_TABLE_BYTES >= 8 * widest
+    assert total == 204_824 <= SMEM_OPTIN
+    assert rows_smem(20_001) == (0, WORK_BYTES + LP_TABLE_BYTES)
+    assert max(rows_smem(w)[1] for w in range(1, 20_002, 97)) <= SMEM_OPTIN
 
 
 def test_cpu_cumsum_is_sequential():
@@ -534,6 +633,11 @@ def test_fused_rows_and_score_check_their_inputs():
     with pytest.raises(ValueError):
         fused_rows(dm, coefs[:, :-1], actives[:, :-1], torch.tensor([5]),
                    (2 ** 62, 1, 1), 5, 1 << 20)
+    for bad in (torch.tensor([5.0], dtype=torch.float32),
+                torch.zeros(2, dtype=torch.float64)):
+        with pytest.raises(TypeError, match="score_req"):
+            fused_rows(dm, coefs, actives, torch.tensor([5]),
+                       (2 ** 62, 1, 1), 5, 1 << 20, score_req=bad)
     with pytest.raises(ValueError):
         score(torch.zeros((1, 3), dtype=torch.int64, device="meta"),
               *(torch.zeros(3, dtype=torch.float64) for _ in range(3)),
