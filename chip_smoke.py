@@ -64,7 +64,24 @@ system's real sizes and holds every result to the host:
    full width, prefill and 4 greedy decode steps through the kernels
    against the same run through the plain versions (logits within 2e-4,
    tokens equal); and, reported only, the full-depth bfloat16 prefill's
-   largest logit difference between the two.
+   largest logit difference between the two;
+11. the simulation layer (``repro_torch.sim``) at the full-run sizes of
+   ``benchmarks/bench_fleet.py``: ``FleetSim`` over the heterogeneous-demand
+   scenario (250 offerings, 128 replicas, traces recorded) through
+   ``torch:fused``, ``torch`` and ``numpy``, and over the interrupt storm
+   and the pressure crunch (250 offerings, 256 replicas each) through
+   ``torch:fused`` and ``numpy``; one ``ClusterSim`` of the storm and one
+   of the diurnal serving scenario (analytic perf model) under the default
+   backend (the card) against ``numpy``; each fleet in turns (``numpy``,
+   the device backends, the same reversed, ``numpy``).  Every replica's
+   JSONL trace,
+   decision records and float totals equal NumPy's byte for byte, no
+   fused fleet falls back to a host solve, ``fused_rows`` launches in every
+   ``torch:fused`` fleet, ``cover_dp`` in every ``torch`` run, and no
+   standalone ``score`` launch; prints replicas/s, memo hit rate, the
+   batched searches with their widths and their share of the wall,
+   device-market cache misses and the kernels' share of each device
+   fleet's wall (CUDA events around every launch).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -296,8 +313,9 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-10 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
-    :func:`run_serving`); returns the kernel record."""
+    """Phases 1-11 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    :func:`run_serving`, 11 in :func:`run_sim`); returns the kernel
+    record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -535,7 +553,12 @@ def run(dev) -> dict:
     ticks = [(items, market, demands, name) for (items, market, demands), name
              in zip(shapes, ("100x1000", "250x5000"))]
     fused = run_fused(dev, catalog, big, ticks)
-    return {"kernels": kernels + fused + run_serving(dev)}
+    kernels = kernels + fused + run_serving(dev)
+    sim = run_sim(dev)
+    for k in kernels:
+        k["launches_sim"] = sim.get(k["name"], 0)
+        k["launches"] += k["launches_sim"]
+    return {"kernels": kernels}
 
 
 def rows_bound(dm, coefs, info):
@@ -1369,6 +1392,222 @@ def run_serving(dev) -> list:
          "launches": n_scan, "max_abs_err": s_err, "ms": s_ms,
          "plain_ms": sp_ms, "bound_ms": sb_ms, "bound_by": sb_by,
          "library_ms": None}]
+
+
+class LaunchTimer:
+    """CUDA events around every launch of the decision-plane kernels (the
+    names the backends call), so a fleet's wall can be split into device
+    kernel time and the rest without synchronising inside the run."""
+
+    def __init__(self, torch):
+        from repro_torch.core import backend as bmod
+        self.torch, self.bmod = torch, bmod
+        self.pairs = []
+
+    def _wrap(self, fn):
+        torch = self.torch
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = (self.bmod.cover_dp, self.bmod.fused_rows)
+        self.bmod.cover_dp = self._wrap(self.saved[0])
+        self.bmod.fused_rows = self._wrap(self.saved[1])
+        self.pairs = []
+        return self
+
+    def __exit__(self, *exc):
+        self.bmod.cover_dp, self.bmod.fused_rows = self.saved
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def run_sim(dev) -> dict:
+    """Phase 11 on ``dev``: the simulation layer at ``bench_fleet``'s
+    full-run sizes; returns each kernel's launches on this path."""
+    import torch
+
+    from repro_torch.core import backend as bmod
+    from repro_torch.core import cover_dp as cdp
+    from repro_torch.core import fused_rows as fr
+    from repro_torch.core import provisioner as pmod
+    from repro_torch.core import score as sc
+    from repro_torch.risk.backtest import (interrupt_storm_scenario,
+                                           pressure_crunch_scenario)
+    from repro_torch.serve_sim import clear_caches
+    from repro_torch.sim import (ClusterSim, FleetSim,
+                                 heterogeneous_demand_scenario,
+                                 serving_scenario)
+
+    t_phase = time.perf_counter()
+    counts = collections.Counter()
+    widths = []
+    search_s = [0.0]
+    gss_many = pmod.bracketed_gss_many
+
+    def counted_many(items, reqs, **kw):
+        """A fleet's batched search: its width and its wall (the solve of
+        every collected decision, host replay and verification included)."""
+        widths.append(len(reqs))
+        t0 = time.perf_counter()
+        try:
+            return gss_many(items, reqs, **kw)
+        finally:
+            search_s[0] += time.perf_counter() - t0
+
+    def launches():
+        return (cdp.cover_dp.launches, fr.fused_rows.launches,
+                sc.score.launches)
+
+    def outcome(results):
+        """What the run must equal byte for byte: each replica's trace,
+        decision records and float totals."""
+        return [(r.recorder.dumps(), r.decision_records(), r.total_cost,
+                 r.total_perf_hours, r.total_egress, r.interrupted_nodes)
+                for r in results]
+
+    def drive(spec, run_fn, label):
+        """Run ``run_fn`` with the process default set for ``spec`` (the
+        card's ``torch`` for the device runs, ``numpy`` for the host
+        reference); returns (outcome, wall s, launch deltas, kernel ms)."""
+        saved = bmod._DEFAULT
+        bmod.set_backend("numpy" if spec == "numpy" else "torch")
+        widths.clear()
+        search_s[0] = 0.0
+        gc.collect()
+        pmod.bracketed_gss_many = counted_many
+        cdp.cover_dp.launches = fr.fused_rows.launches = 0
+        sc.score.launches = 0
+        try:
+            with LaunchTimer(torch) as lt:
+                t0 = time.perf_counter()
+                out = run_fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                k_ms = lt.ms()
+        finally:
+            pmod.bracketed_gss_many = gss_many
+            bmod._DEFAULT = saved
+        got = launches()
+        counts["cover_dp"] += got[0]
+        counts["fused_rows"] += got[1]
+        counts["score"] += got[2]
+        check(got[2] == 0, f"phase11 {label} {spec}: {got[2]} standalone "
+              "score launches")
+        if spec == "numpy":
+            check(got[:2] == (0, 0), f"phase11 {label} numpy launched "
+                  f"kernels {got}")
+        return out, wall, got, k_ms
+
+    def fleet(name, scenario, replicas, specs):
+        """The fleet through ``numpy`` and each of ``specs``, in turns
+        (numpy, specs, specs reversed, numpy): every run equal to the
+        first numpy run's."""
+        seeds = list(range(replicas))
+        ref = None
+        rates = collections.defaultdict(list)
+        for spec in ("numpy", *specs, *reversed(specs), "numpy"):
+            sims = []
+
+            def go():
+                sim = FleetSim(scenario, seeds, record_traces=True,
+                               backend=spec)
+                sims.append(sim)
+                return sim.run()
+
+            results, wall, got, k_ms = drive(spec, go, name)
+            stats = sims[0].stats()
+            out = outcome(results)
+            if ref is None:
+                ref = out
+            else:
+                check(out == ref, f"phase11 {name} fleet {spec}: a replica "
+                      "differs from the numpy fleet's")
+            if spec == "torch:fused":
+                check(stats["device_cache_fallback_solves"] == 0,
+                      f"phase11 {name} fleet: fallback solves {stats}")
+                check(got[1] > 0, f"phase11 {name} fleet: no fused_rows "
+                      "launch")
+            if spec == "torch":
+                check(got[0] > 0, f"phase11 {name} fleet: no cover_dp launch")
+            rates[spec].append(replicas / wall)
+            lookups = stats["memo_hits"] + stats["memo_misses"]
+            ws = sorted(widths)
+            cache = ("" if "device_cache_misses" not in stats else
+                     f"; device-market cache hits "
+                     f"{stats['device_cache_hits']} misses "
+                     f"{stats['device_cache_misses']} fallback solves "
+                     f"{stats['device_cache_fallback_solves']} verify solves "
+                     f"{stats['device_cache_verify_solves']}")
+            print(f"phase11 fleet {name} {spec}: {replicas} replicas x "
+                  f"{stats['ticks']} ticks, wall {wall:.3f} s, "
+                  f"{replicas / wall:.2f} replicas/s; memo hit rate "
+                  f"{stats['memo_hits'] / max(lookups, 1):.4f} "
+                  f"({stats['memo_hits']} hits, {stats['memo_misses']} "
+                  f"misses); compiled markets {stats['compile_misses']} "
+                  f"(hits {stats['compile_hits']}); batched searches "
+                  f"{len(ws)}, widths min/median/"
+                  f"max {ws[0] if ws else 0}/{ws[len(ws) // 2] if ws else 0}/"
+                  f"{ws[-1] if ws else 0}, decisions {sum(ws)}, their wall "
+                  f"{search_s[0]:.3f} s ({search_s[0] / wall:.4f}); launches "
+                  f"cover_dp {got[0]} fused_rows {got[1]} score {got[2]}; "
+                  f"kernels {k_ms:.3f} ms, share of wall "
+                  f"{k_ms / 1e3 / wall:.4f}{cache}"
+                  + (": equal to numpy" if out is not ref else ""))
+        print(f"phase11 fleet {name} replicas/s in turns: " + "; ".join(
+            f"{spec} " + ", ".join(f"{r:.2f}" for r in rs)
+            for spec, rs in rates.items()))
+
+    def standalone(name, scenario):
+        ref = None
+        for spec in ("numpy", "torch"):
+            res, wall, got, k_ms = drive(
+                spec, lambda: [ClusterSim(scenario).run()], name)
+            out = outcome(res)
+            if ref is None:
+                ref = out
+            else:
+                check(out == ref, f"phase11 {name} ClusterSim: trace differs "
+                      "from numpy's")
+                check(got[0] > 0, f"phase11 {name} ClusterSim: no cover_dp "
+                      "launch")
+            print(f"phase11 ClusterSim {name} default {spec}: "
+                  f"{len(res[0].decisions)} decisions, wall {wall:.3f} s; "
+                  f"launches cover_dp {got[0]} fused_rows {got[1]}; kernels "
+                  f"{k_ms:.3f} ms, share of wall {k_ms / 1e3 / wall:.4f}"
+                  + (": equal to numpy" if spec != "numpy" else ""))
+
+    fleet("hetero", heterogeneous_demand_scenario(max_offerings=250), 128,
+          ("torch:fused", "torch"))
+    fleet("storm", interrupt_storm_scenario(max_offerings=250), 256,
+          ("torch:fused",))
+    fleet("crunch", pressure_crunch_scenario(max_offerings=250), 256,
+          ("torch:fused",))
+    standalone("storm", interrupt_storm_scenario(max_offerings=250))
+    saved_mode = os.environ.get("KUBEPACS_SERVE_PERF")
+    os.environ["KUBEPACS_SERVE_PERF"] = "analytic"
+    clear_caches()
+    try:
+        standalone("serving diurnal", serving_scenario("diurnal"))
+    finally:
+        if saved_mode is None:
+            del os.environ["KUBEPACS_SERVE_PERF"]
+        else:
+            os.environ["KUBEPACS_SERVE_PERF"] = saved_mode
+        clear_caches()
+    print(f"phase11 launches on the sim path: {dict(counts)}; took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(counts)
 
 
 if __name__ == "__main__":
