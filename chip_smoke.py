@@ -29,7 +29,9 @@ system's real sizes and holds every result to the host:
    ``prefix_plan``'s and both paths taken, and each row's folded pool score
    bitwise ``score_plain``'s (``-inf`` unless feasible), with the kernel's
    clock64 split by stage and the cycles a bundle step of both DPs;
-   ``score`` against ``score_plain`` (bitwise); times the kernels, the
+   ``score`` against ``score_plain`` (bitwise, also with NaN prices on
+   columns some pools use: those score NaN, the rest as before, as the
+   host's ``e_total``); times the kernels, the
    plain versions and, for ``score``, one ``torch.matmul``;
 6. ``provision()`` at 1000 and 5000 pods and both fleet ticks through
    ``torch:fused``, each equal to the NumPy decision with no fallback
@@ -81,7 +83,29 @@ system's real sizes and holds every result to the host:
    standalone ``score`` launch; prints replicas/s, memo hit rate, the
    batched searches with their widths and their share of the wall,
    device-market cache misses and the kernels' share of each device
-   fleet's wall (CUDA events around every launch).
+   fleet's wall (CUDA events around every launch);
+12. the hardened, regional and serving policies at their benchmarks' sizes
+   (parameters of ``benchmarks/bench_chaos.py``, ``bench_region.py`` and
+   ``bench_serve.py``, copied): ``FleetSim`` of the combined chaos storm
+   under ``hardened`` and ``kubepacs`` (interrupt seeds 3, 7, 11) and the
+   clean inertness pair; the regional storm under ``hardened``,
+   ``region_pinned:us-east-1`` and ``kubepacs_region`` over shock seeds 11
+   and 23; ``run_serving`` of the diurnal workload (24 h, analytic perf
+   model) under bench_serve's five policies.  Each in turns through
+   ``numpy``, ``torch:fused`` (fleets) and ``torch`` (the process default,
+   which every inline solve takes), ``numpy``: traces, decision records,
+   ``chaos_*`` ladder counters and serving reports equal to the first
+   ``numpy`` run's, no fallback solve, ``cover_dp`` launched by every
+   policy that solves inline, the ``numpy`` rung used only where the storm
+   injects solver faults; replicas/s and the kernels' share of each wall;
+13. ``qwen3-moe-30b-a3b`` (128 experts top-8, GQA 32/4) at full width:
+   ``flash_attention`` at its prefill shape (B 4, S 1024, H 32, KV 4, hd
+   128, bf16) against its plain version and timed against SDPA in turns; a
+   two-layer float32 cut held to the plain attention path (logits within
+   2e-4, tokens equal); ``launch.serve.serve`` of 8 requests (batch 4,
+   prompt 1024, 16 new tokens) with 24 of the 48 layers (62.3 GB of
+   float32 weights drawn on the card), every logit finite, launches =
+   layers x batches, peak device memory within the card.
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -298,11 +322,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     print(json.dumps(run(torch.device("cuda"))))
@@ -313,9 +333,9 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-11 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
-    :func:`run_serving`, 11 in :func:`run_sim`); returns the kernel
-    record."""
+    """Phases 1-13 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
+    13 in :func:`run_moe`); returns the kernel record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -555,9 +575,18 @@ def run(dev) -> dict:
     fused = run_fused(dev, catalog, big, ticks)
     kernels = kernels + fused + run_serving(dev)
     sim = run_sim(dev)
+    policies = run_policies(dev)
+    moe = run_moe(dev)
     for k in kernels:
         k["launches_sim"] = sim.get(k["name"], 0)
-        k["launches"] += k["launches_sim"]
+        k["launches_policies"] = policies.get(k["name"], 0)
+        k["launches"] += k["launches_sim"] + k["launches_policies"]
+        if k["name"] == "flash_attention":
+            k["launches_moe"] = moe["launches"]
+            k["launches"] += moe["launches"]
+            k["gqa8"] = {key: moe[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
     return {"kernels": kernels}
 
 
@@ -765,6 +794,29 @@ def run_fused(dev, catalog, big, ticks) -> list:
     fin = torch.isfinite(folded)
     check(torch.equal(folded[fin], sk[fin]),
           "score: the folded scores differ from the standalone kernel's")
+    # a corrupted feed: NaN prices on every third column the first pool
+    # leaves unused, and every other pool given a node of one of them; a
+    # pool that uses none of them scores as before, one that does is NaN
+    cols = torch.arange(counts.shape[1], device=dev)
+    hit = (cols % 3 == 0) & (counts[0] == 0)
+    bad = torch.where(hit, torch.full_like(dm.price, float("nan")),
+                      dm.price)
+    mixed = counts.clone()
+    mixed[1::2, int(torch.nonzero(hit)[0])] += 1
+    nk = sc.score(mixed, dm.perf, bad, dm.podsf, reqf)
+    npl = sc.score_plain(mixed, dm.perf, bad, dm.podsf, reqf)
+    nan = torch.isnan(npl)
+    clean = ~((mixed != 0) & hit).any(dim=1)
+    check(torch.equal(torch.isnan(nk), nan)
+          and torch.equal(nk[~nan], npl[~nan])
+          and torch.equal(nk[clean], sk[clean]),
+          "score: kernel != plain version with NaN prices")
+    check(bool(clean.any()) and bool(nan.any()),
+          f"score with NaN prices: clean {clean.tolist()} nan "
+          f"{nan.tolist()}")
+    print(f"phase5 score with NaN prices on {int(hit.sum())} columns: "
+          f"{int(nan.sum())} NaN scores, {int(clean.sum())} pools clear of "
+          f"them scoring as before: bitwise equal to the plain version")
     s_err = float((sk - sp).abs().max())
     s_ms = cuda_ms(torch, lambda: sc.score(counts, dm.perf, dm.price,
                                            dm.podsf, reqf), 20)
@@ -1057,6 +1109,35 @@ def traced(torch, fn):
     return wall, sum(by_name.values()) / 1e3, [(k, v / 1e3) for k, v in top]
 
 
+def greedy(cfg, params, prompt, steps):
+    """Prefill ``prompt`` and take ``steps`` greedy decode steps: (the
+    logits of every step, the tokens ``(B, steps + 1)``)."""
+    import torch
+
+    from repro_torch.serving import decode_fn, prefill_fn
+
+    logits, caches = prefill_fn(params, prompt, cfg=cfg,
+                                max_len=prompt["tokens"].shape[1] + steps)
+    outs = [logits]
+    nxt = torch.argmax(logits[:, -1:], dim=-1)
+    toks = [nxt]
+    for i in range(steps):
+        logits, caches = decode_fn(params, caches, {"tokens": nxt},
+                                   prompt["tokens"].shape[1] + i, cfg=cfg)
+        outs.append(logits)
+        nxt = torch.argmax(logits[:, -1:], dim=-1)
+        toks.append(nxt)
+    return outs, torch.cat(toks, dim=1)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def run_serving(dev) -> list:
     """Phases 8-10 on ``dev``: the serving path; returns the kernel records
     of ``flash_attention`` and ``mamba_scan``."""
@@ -1318,20 +1399,6 @@ def run_serving(dev) -> list:
     # -- phase 10: the slice held on the card --------------------------------
     t_phase = time.perf_counter()
 
-    def greedy(cfg, params, prompt, steps):
-        logits, caches = prefill_fn(params, prompt, cfg=cfg,
-                                    max_len=prompt["tokens"].shape[1] + steps)
-        outs = [logits]
-        nxt = torch.argmax(logits[:, -1:], dim=-1)
-        toks = [nxt]
-        for i in range(steps):
-            logits, caches = decode_fn(params, caches, {"tokens": nxt},
-                                       prompt["tokens"].shape[1] + i, cfg=cfg)
-            outs.append(logits)
-            nxt = torch.argmax(logits[:, -1:], dim=-1)
-            toks.append(nxt)
-        return outs, torch.cat(toks, dim=1)
-
     for seed, arch in enumerate(("internlm2-1.8b", "falcon-mamba-7b")):
         full = get_config(arch)
         cfg = dataclasses.replace(full, dtype="float32", n_layers=2,
@@ -1432,62 +1499,53 @@ class LaunchTimer:
         return sum(a.elapsed_time(b) for a, b in self.pairs)
 
 
-def run_sim(dev) -> dict:
-    """Phase 11 on ``dev``: the simulation layer at ``bench_fleet``'s
-    full-run sizes; returns each kernel's launches on this path."""
-    import torch
+class SimDriver:
+    """Runs a simulation with the process default set for a backend spec
+    (the card's ``torch`` for the device runs, ``numpy`` for the host
+    reference), counting each kernel's launches, timing the kernels (CUDA
+    events around every launch) and the fleet's batched searches (their
+    widths and wall)."""
 
-    from repro_torch.core import backend as bmod
-    from repro_torch.core import cover_dp as cdp
-    from repro_torch.core import fused_rows as fr
-    from repro_torch.core import provisioner as pmod
-    from repro_torch.core import score as sc
-    from repro_torch.risk.backtest import (interrupt_storm_scenario,
-                                           pressure_crunch_scenario)
-    from repro_torch.serve_sim import clear_caches
-    from repro_torch.sim import (ClusterSim, FleetSim,
-                                 heterogeneous_demand_scenario,
-                                 serving_scenario)
+    def __init__(self, torch, phase: str):
+        from repro_torch.core import backend as bmod
+        from repro_torch.core import cover_dp as cdp
+        from repro_torch.core import fused_rows as fr
+        from repro_torch.core import provisioner as pmod
+        from repro_torch.core import score as sc
+        self.torch, self.phase = torch, phase
+        self.bmod, self.cdp, self.fr, self.pmod, self.sc = (bmod, cdp, fr,
+                                                            pmod, sc)
+        self.counts = collections.Counter()
+        self.widths = []
+        self.search_s = 0.0
+        self.gss_many = pmod.bracketed_gss_many
 
-    t_phase = time.perf_counter()
-    counts = collections.Counter()
-    widths = []
-    search_s = [0.0]
-    gss_many = pmod.bracketed_gss_many
-
-    def counted_many(items, reqs, **kw):
+    def _counted_many(self, items, reqs, **kw):
         """A fleet's batched search: its width and its wall (the solve of
         every collected decision, host replay and verification included)."""
-        widths.append(len(reqs))
+        self.widths.append(len(reqs))
         t0 = time.perf_counter()
         try:
-            return gss_many(items, reqs, **kw)
+            return self.gss_many(items, reqs, **kw)
         finally:
-            search_s[0] += time.perf_counter() - t0
+            self.search_s += time.perf_counter() - t0
 
-    def launches():
-        return (cdp.cover_dp.launches, fr.fused_rows.launches,
-                sc.score.launches)
+    def launches(self):
+        return (self.cdp.cover_dp.launches, self.fr.fused_rows.launches,
+                self.sc.score.launches)
 
-    def outcome(results):
-        """What the run must equal byte for byte: each replica's trace,
-        decision records and float totals."""
-        return [(r.recorder.dumps(), r.decision_records(), r.total_cost,
-                 r.total_perf_hours, r.total_egress, r.interrupted_nodes)
-                for r in results]
-
-    def drive(spec, run_fn, label):
-        """Run ``run_fn`` with the process default set for ``spec`` (the
-        card's ``torch`` for the device runs, ``numpy`` for the host
-        reference); returns (outcome, wall s, launch deltas, kernel ms)."""
+    def drive(self, spec, run_fn, label):
+        """Run ``run_fn`` under ``spec``; returns (its result, wall s,
+        launch deltas (cover_dp, fused_rows, score), kernel ms)."""
+        torch, bmod = self.torch, self.bmod
         saved = bmod._DEFAULT
         bmod.set_backend("numpy" if spec == "numpy" else "torch")
-        widths.clear()
-        search_s[0] = 0.0
+        self.widths.clear()
+        self.search_s = 0.0
         gc.collect()
-        pmod.bracketed_gss_many = counted_many
-        cdp.cover_dp.launches = fr.fused_rows.launches = 0
-        sc.score.launches = 0
+        self.pmod.bracketed_gss_many = self._counted_many
+        self.cdp.cover_dp.launches = self.fr.fused_rows.launches = 0
+        self.sc.score.launches = 0
         try:
             with LaunchTimer(torch) as lt:
                 t0 = time.perf_counter()
@@ -1496,18 +1554,45 @@ def run_sim(dev) -> dict:
                 wall = time.perf_counter() - t0
                 k_ms = lt.ms()
         finally:
-            pmod.bracketed_gss_many = gss_many
+            self.pmod.bracketed_gss_many = self.gss_many
             bmod._DEFAULT = saved
-        got = launches()
-        counts["cover_dp"] += got[0]
-        counts["fused_rows"] += got[1]
-        counts["score"] += got[2]
-        check(got[2] == 0, f"phase11 {label} {spec}: {got[2]} standalone "
-              "score launches")
+        got = self.launches()
+        self.counts["cover_dp"] += got[0]
+        self.counts["fused_rows"] += got[1]
+        self.counts["score"] += got[2]
+        check(got[2] == 0, f"{self.phase} {label} {spec}: {got[2]} "
+              "standalone score launches")
         if spec == "numpy":
-            check(got[:2] == (0, 0), f"phase11 {label} numpy launched "
+            check(got[:2] == (0, 0), f"{self.phase} {label} numpy launched "
                   f"kernels {got}")
         return out, wall, got, k_ms
+
+
+def outcome(results):
+    """What a run must equal byte for byte: each replica's trace, decision
+    records, float totals and its policy's ``chaos_*`` counters."""
+    return [(r.recorder.dumps(), r.decision_records(), r.total_cost,
+             r.total_perf_hours, r.total_egress, r.interrupted_nodes,
+             sorted((k, v) for k, v in r.cache_stats.items()
+                    if k.startswith("chaos_")))
+            for r in results]
+
+
+def run_sim(dev) -> dict:
+    """Phase 11 on ``dev``: the simulation layer at ``bench_fleet``'s
+    full-run sizes; returns each kernel's launches on this path."""
+    import torch
+
+    from repro_torch.risk.backtest import (interrupt_storm_scenario,
+                                           pressure_crunch_scenario)
+    from repro_torch.serve_sim import clear_caches
+    from repro_torch.sim import (ClusterSim, FleetSim,
+                                 heterogeneous_demand_scenario,
+                                 serving_scenario)
+
+    t_phase = time.perf_counter()
+    drv = SimDriver(torch, "phase11")
+    counts, drive, widths = drv.counts, drv.drive, drv.widths
 
     def fleet(name, scenario, replicas, specs):
         """The fleet through ``numpy`` and each of ``specs``, in turns
@@ -1559,7 +1644,8 @@ def run_sim(dev) -> dict:
                   f"{len(ws)}, widths min/median/"
                   f"max {ws[0] if ws else 0}/{ws[len(ws) // 2] if ws else 0}/"
                   f"{ws[-1] if ws else 0}, decisions {sum(ws)}, their wall "
-                  f"{search_s[0]:.3f} s ({search_s[0] / wall:.4f}); launches "
+                  f"{drv.search_s:.3f} s ({drv.search_s / wall:.4f}); "
+                  f"launches "
                   f"cover_dp {got[0]} fused_rows {got[1]} score {got[2]}; "
                   f"kernels {k_ms:.3f} ms, share of wall "
                   f"{k_ms / 1e3 / wall:.4f}{cache}"
@@ -1608,6 +1694,337 @@ def run_sim(dev) -> dict:
     print(f"phase11 launches on the sim path: {dict(counts)}; took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return dict(counts)
+
+
+def run_policies(dev) -> dict:
+    """Phase 12 on ``dev``: the hardened, regional and serving policies at
+    their benchmarks' sizes (``benchmarks/bench_chaos.py``,
+    ``bench_region.py``, ``bench_serve.py``, parameters copied), each run in
+    turns through ``numpy`` and the device backends; returns each kernel's
+    launches on this path."""
+    import torch
+
+    from repro_torch.chaos import SOLVER_KINDS, fault_storm, region_storm
+    from repro_torch.region import RegionConfig
+    from repro_torch.serve_sim import (build_serve_scenario, clear_caches,
+                                       run_serving)
+    from repro_torch.sim import FleetSim, Scenario
+    from repro_torch.sim import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    drv = SimDriver(torch, "phase12")
+    home = "us-east-1"
+    seeds = [3, 7, 11]
+
+    def chaos_scenario(storm, policy):          # bench_chaos.py:62-75
+        return Scenario(
+            name=f"chaos_{storm or 'clean'}", duration_hours=48.0,
+            step_hours=3.0, pods=160,
+            demand_schedule=((12.0, 220), (24.0, 140)),
+            interrupt_model="pressure", policy=policy,
+            catalog_seed=7, max_offerings=150, market_seed=7,
+            interrupt_seed=7, faults=fault_storm(storm) if storm else ())
+
+    def region_scenario(policy, shock_seed=11):  # bench_region.py:66-86
+        return Scenario(
+            name="region_storm", duration_hours=48.0, step_hours=3.0,
+            pods=160, demand_schedule=((12.0, 220), (24.0, 140)),
+            interrupt_model="pressure", policy=policy,
+            catalog_seed=7, max_offerings=200, market_seed=7,
+            interrupt_seed=7,
+            region=RegionConfig(regions=("us-east-1", "us-west-2",
+                                         "eu-west-1"),
+                                rho=0.7, vol=0.25, shock_seed=shock_seed,
+                                home_region=home, egress_per_pod_hour=0.002),
+            faults=region_storm(home))
+
+    def ladder(results, key):
+        return sum(r.cache_stats.get(key, 0) for r in results)
+
+    def in_turns(label, scenarios, kernel, specs, run_fn, n_replicas):
+        """``run_fn(scenarios, spec)`` -> (results, fleet stats or None) for
+        each spec in ``("numpy", *specs, "numpy")``; every run equal to the
+        first numpy run's (traces, decision records, totals, ladder
+        counters); ``kernel(spec)`` names the launch count (0 cover_dp, 1
+        fused_rows) that must be positive on a device run, or None for a
+        policy that never solves; returns the first run's results."""
+        ref = first = None
+        rates = collections.defaultdict(list)
+        for spec in ("numpy", *specs, "numpy"):
+            (results, stats), wall, got, k_ms = drv.drive(
+                spec, lambda: run_fn(scenarios, spec), label)
+            out = outcome(results)
+            if ref is None:
+                ref, first = out, results
+            else:
+                check(out == ref, f"phase12 {label} {spec}: a replica "
+                      "differs from the numpy run's")
+            if spec == "torch:fused" and stats is not None:
+                check(stats.get("device_cache_fallback_solves", 0) == 0,
+                      f"phase12 {label}: fallback solves {stats}")
+            if spec != "numpy" and kernel(spec) is not None:
+                check(got[kernel(spec)] > 0,
+                      f"phase12 {label} {spec}: launches {got}")
+            rates[spec].append(n_replicas / wall)
+            print(f"phase12 {label} {spec}: {n_replicas} runs, wall "
+                  f"{wall:.3f} s, {n_replicas / wall:.2f} replicas/s; "
+                  f"launches cover_dp {got[0]} fused_rows {got[1]} score "
+                  f"{got[2]}; kernels {k_ms:.3f} ms, share of wall "
+                  f"{k_ms / 1e3 / wall:.4f}"
+                  + ("" if spec == "numpy" else ": equal to numpy"))
+        print(f"phase12 {label} replicas/s in turns: " + "; ".join(
+            f"{spec} " + ", ".join(f"{r:.2f}" for r in rs)
+            for spec, rs in rates.items()))
+        return first
+
+    def fleet(scenario, spec):
+        sim = FleetSim(scenario, seeds, record_traces=True, backend=spec)
+        return sim.run(), sim.stats()
+
+    def paths(scenarios, spec):
+        results, stats = [], {}
+        for sc in scenarios:
+            sim = FleetSim(sc, seeds, record_traces=True, backend=spec)
+            results.extend(sim.run())
+            for k, v in sim.stats().items():
+                stats[k] = stats.get(k, 0) + v
+        return results, stats
+
+    # -- chaos: the combined storm, then the clean inertness pair ----------
+    clean = {}
+    for storm in ("combined", None):
+        for policy in ("hardened", "kubepacs"):
+            sc = chaos_scenario(storm, policy)
+            # a hardened fleet solves inline (cover_dp); a kubepacs fleet
+            # batches its decisions (fused_rows under torch:fused)
+            kernel = ((lambda spec: 0) if policy == "hardened" else
+                      (lambda spec: 1 if spec == "torch:fused" else 0))
+            res = in_turns(f"chaos {storm or 'clean'} {policy}", sc, kernel,
+                           ("torch:fused", "torch"), fleet, len(seeds))
+            solver_faults = any(f.kind in SOLVER_KINDS for f in sc.faults)
+            if policy == "hardened":
+                check((ladder(res, "chaos_solver_rung_1") > 0)
+                      == solver_faults, f"phase12 chaos {storm} hardened: "
+                      "the numpy rung served where no solver fault was")
+                print(f"phase12 chaos {storm or 'clean'} hardened ladder: "
+                      + ", ".join(f"{k} {ladder(res, k)}" for k in sorted(
+                          {k for r in res for k in r.cache_stats
+                           if k.startswith("chaos_")})))
+            if storm is None:
+                clean[policy] = res
+    for h, k in zip(clean["hardened"], clean["kubepacs"]):
+        check(h.recorder.dumps().replace('"policy": "hardened"',
+                                         '"policy": "kubepacs"')
+              == k.recorder.dumps(), "phase12 chaos: hardened is not inert "
+              "without faults")
+        check(not any(key.startswith("chaos_") for key in h.cache_stats),
+              "phase12 chaos clean: ladder counters without faults")
+
+    # -- region: the regional storm over two correlated market paths -------
+    for policy in ("hardened", f"region_pinned:{home}", "kubepacs_region"):
+        scs = [region_scenario(policy, shock) for shock in (11, 23)]
+        res = in_turns(f"region {policy}", scs, lambda spec: 0,
+                       ("torch:fused", "torch"), paths, 2 * len(seeds))
+        check(ladder(res, "chaos_solver_rung_1") == 0,
+              f"phase12 region {policy}: the numpy rung served")
+        if policy == "hardened":
+            check(ladder(res, "chaos_region_failover") > 0,
+                  "phase12 region hardened: no failover")
+
+    # -- serving: bench_serve's five policies on the diurnal workload ------
+    saved_mode = os.environ.get("KUBEPACS_SERVE_PERF")
+    os.environ["KUBEPACS_SERVE_PERF"] = "analytic"
+    base_sim = engine_mod.ClusterSim
+    kept = []
+
+    class KeptSim(base_sim):
+        """``run_serving``'s engine, keeping its result for the trace."""
+
+        def run(self):
+            kept.append(super().run())
+            return kept[-1]
+
+    def serving(ss, spec):
+        clear_caches()
+        kept.clear()
+        engine_mod.ClusterSim = KeptSim
+        try:
+            report = run_serving(ss, clock=lambda: 0.0)
+        finally:
+            engine_mod.ClusterSim = base_sim
+        reports.append((json.dumps(report.as_dict(), sort_keys=True),
+                        report))
+        return list(kept), None
+
+    try:
+        for policy in ("serving_slo", "karpenter_like", "kubepacs",
+                       "fixed_alpha:0.5", "kubepacs_risk"):
+            reports = []
+            ss = build_serve_scenario("diurnal", policy=policy,
+                                      duration_hours=24.0)
+            # serving_slo must reach the card; karpenter_like is a greedy
+            # and fixed_alpha's one decision may settle without a DP
+            held = policy == "serving_slo"
+            in_turns(f"serve diurnal {policy}", ss,
+                     lambda spec: 0 if held else None, ("torch",),
+                     serving, 1)
+            check(len({text for text, _ in reports}) == 1,
+                  f"phase12 serve {policy}: ServeReport differs from "
+                  "numpy's")
+            rep = reports[0][1]
+            print(f"phase12 serve diurnal {policy}: reports equal; "
+                  f"decisions {rep.decisions}, SLO attainment "
+                  f"{rep.slo_attainment:.6f}, SLO QPS-hours a dollar "
+                  f"{rep.slo_qps_hours_per_dollar:.4f}, cost "
+                  f"{rep.total_cost:.4f}")
+    finally:
+        if saved_mode is None:
+            del os.environ["KUBEPACS_SERVE_PERF"]
+        else:
+            os.environ["KUBEPACS_SERVE_PERF"] = saved_mode
+        clear_caches()
+    print(f"phase12 launches on the policy paths: {dict(drv.counts)}; took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(drv.counts)
+
+
+def run_moe(dev) -> dict:
+    """Phase 13 on ``dev``: ``qwen3-moe-30b-a3b`` served at full width;
+    returns the GQA-8 ``flash_attention`` readings and its launches."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import active_params, count_params, init_params
+    from repro_torch.serving import decode_fn, prefill_fn
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=dev)
+    full = get_config("qwen3-moe-30b-a3b")
+    check(count_params(full) == 30_532_110_336, "qwen3-moe parameter count")
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # flash_attention at the prefill's shape: GQA 32/4 = 8, bf16
+    shape = (4, 1024, 1024, 32, 4, 128)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh)).to(
+        device=dev, dtype=torch.bfloat16) for sh in (
+            (4, 1024, 32, 128), (4, 1024, 4, 128), (4, 1024, 4, 128)))
+    o, lse = flash_attention_cuda(q, k, v, causal=True)
+    o_p, lse_p = ref.flash_fwd_chunked(q, k, v, q_chunk=1024, kv_chunk=1024,
+                                       causal=True)
+    a_err = float((o.float() - o_p.float()).abs().max())
+    l_err = float((lse - lse_p).abs().max())
+    check(a_err <= ATTN_TOL["bfloat16"] and l_err <= ATTN_TOL["bfloat16"],
+          f"phase13 flash_attention GQA-8: o err {a_err} lse err {l_err}")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    timed = {"kernel": lambda: flash_attention_cuda(q, k, v),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True)}
+    turns = {"kernel": [], "sdpa": []}
+    for who in ("kernel", "sdpa", "sdpa", "kernel"):
+        turns[who].append(cuda_ms(torch, timed[who], 20))
+    a_ms, al_ms = median(turns["kernel"]), median(turns["sdpa"])
+    ap_ms = cuda_ms(torch, lambda: ref.flash_fwd_chunked(
+        q, k, v, q_chunk=1024, kv_chunk=1024), 5)
+    ab_ms, ab_by = attn_bound(*shape, elem=2)
+    tflop = attn_flops(*shape) / 1e12
+    print(f"phase13 flash_attention at the qwen3-moe-30b-a3b prefill (B 4, "
+          f"S 1024, H 32, KV 4, hd 128, bf16, GQA 8): o err {a_err:.3e} lse "
+          f"err {l_err:.3e}; kernel {a_ms:.4f} ms (turns {turns['kernel']}) "
+          f"{tflop / a_ms * 1e3:.1f} TFLOP/s {ab_ms / a_ms:.2%} of bound; "
+          f"scaled_dot_product_attention {al_ms:.4f} ms (turns "
+          f"{turns['sdpa']}); kernel / SDPA {a_ms / al_ms:.3f}; plain "
+          f"{ap_ms:.4f} ms; bound {ab_ms:.6f} ms ({ab_by})")
+    del q, k, v, qt, kt, vt, o, o_p
+    release()
+
+    # the slice held on the card: a 2-layer float32 cut at full width
+    cfg = dataclasses.replace(full, dtype="float32", n_layers=2,
+                              layout=full.layout[:2])
+    params = init_params(cfg, gen.manual_seed(31), dev)
+    prompt = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 256))).to(dev)}
+    flash_attention_cuda.launches = 0
+    outs_k, toks_k = greedy(cfg, params, prompt, 4)
+    check(flash_attention_cuda.launches == 2,
+          "phase13 2-layer: flash_attention not launched")
+    outs_p, toks_p = greedy(dataclasses.replace(cfg, attention_impl="chunked"),
+                            params, prompt, 4)
+    check(flash_attention_cuda.launches == 2,
+          "phase13 2-layer: the plain run launched a kernel")
+    diff = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_p))
+    check(all(bool(torch.isfinite(a).all()) for a in outs_k),
+          "phase13 2-layer: a logit is not finite")
+    check(diff <= 2e-4, f"phase13 2-layer f32: logits differ by {diff}")
+    check(torch.equal(toks_k, toks_p), f"phase13 2-layer f32: tokens differ "
+          f"{toks_k.tolist()} vs {toks_p.tolist()}")
+    print(f"phase13 qwen3-moe-30b-a3b: 2-layer float32 cut at full width, "
+          f"prefill (B 2, S 256) + 4 greedy decode steps, kernels vs plain "
+          f"attention: max logit diff {diff:.3e} (bar 2e-4), tokens equal "
+          f"{toks_k.tolist()}")
+    del params, outs_k, outs_p
+    release()
+
+    # serve at full width, depth cut to what one card holds in float32
+    layers = 24
+    cfg = dataclasses.replace(full, n_layers=layers,
+                              layout=full.layout[:layers])
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen.manual_seed(30), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention_cuda.launches = 0
+    out = serve(cfg, params, requests=8, batch=4, prompt_len=1024,
+                new_tokens=16, seed=0, device=dev)
+    n_flash = flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    bs = out["batches"]
+    check(out["served"] == 8, f"phase13 serve: served {out['served']}")
+    check(out["all_finite"], "phase13 serve: a logit is not finite")
+    check(n_flash == layers * len(bs),
+          f"phase13 serve: {n_flash} flash_attention launches, expected "
+          f"{layers * len(bs)}")
+    check(peak < total, f"phase13 serve: peak {peak} B over {total} B")
+    print(f"phase13 serve qwen3-moe-30b-a3b ({card_line()}): full width, "
+          f"{layers} of {full.n_layers} layers ({count_params(cfg)} params, "
+          f"{active_params(cfg)} active a token, float32, drawn on the card "
+          f"in {t_init:.1f} s); 8 requests, batch 4, prompt 1024, 16 new "
+          f"tokens; launches flash_attention={n_flash}; prefill ms "
+          f"{[round(b['prefill_s'] * 1e3, 3) for b in bs]}; decode ms a step "
+          f"{[round(b['decode_s'] * 1e3 / 16, 3) for b in bs]}; tok/s "
+          f"{out['throughput_tok_s']}; wall {out['wall_s']} s; peak device "
+          f"memory {peak} B of {total} B; all logits finite")
+    # where one prefill and one decode step of a batch spend device time
+    prompt = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 1024))).to(dev)}
+    _, caches = prefill_fn(params, prompt, cfg=cfg, max_len=1026)
+    nxt = {"tokens": prompt["tokens"][:, :1]}
+    for what, fn in (("prefill", lambda: prefill_fn(params, prompt, cfg=cfg,
+                                                     max_len=1026)),
+                     ("decode step", lambda: decode_fn(params, caches, nxt,
+                                                       1024, cfg=cfg))):
+        wall, busy, top = traced(torch, fn)
+        print(f"phase13 trace qwen3-moe-30b-a3b {what} (B 4, S 1024): traced "
+              f"wall {wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+              f"{1 - busy / wall:.4f}); by kernel: " + "; ".join(
+                  f"{k} {v:.3f} ms" for k, v in top[:8]))
+    del params, caches
+    release()
+    print(f"phase13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": n_flash, "max_abs_err": a_err, "ms": a_ms,
+            "plain_ms": ap_ms, "bound_ms": ab_ms, "bound_by": ab_by,
+            "library_ms": al_ms}
 
 
 if __name__ == "__main__":

@@ -23,6 +23,4 @@ def import_lazy(name: str, package: str):
     except ModuleNotFoundError as exc:
         if exc.name != full:
             raise
-        raise ImportError(
-            f"{full} is not ported yet (ROADMAP.md, Queue 1 item 2)",
-            name=full) from exc
+        raise ImportError(f"{full} is not ported yet", name=full) from exc

@@ -411,8 +411,10 @@ class FusedTorchBackend(TorchBackend):
         pmask = keep & (dm.perf > 0.0)
         pmin = torch.where(pmask, dm.perf, inf).amin(dim=1)
         perf_min = torch.where(pmask.any(dim=1), pmin, one)
+        # the host's ``prices.min()``: NaN if a kept price is NaN (a
+        # corrupted feed), 1.0 only when every row is excluded
         smin = torch.where(keep, dm.price, inf).amin(dim=1)
-        sp_min = torch.where(torch.isfinite(smin), smin, one)
+        sp_min = torch.where(keep.any(dim=1), smin, one)
         pn = dm.perf / perf_min[:, None]
         qn = dm.price / sp_min[:, None]
         return dm, pn, qn, dm.structural & keep, rq

@@ -2,11 +2,12 @@
 
 ``score`` computes the fused plane's speculative ``e_total`` of each
 decision's counts — ``(sp / sc) * (req / sq)`` over ``sp = Σ c·perf``,
-``sc = Σ c·price``, ``sq = Σ c·pods``, or 0 when the pool falls short of the
-demand — in one launch of the hand-written CUDA kernel ``csrc/score.cu``
-(one CTA per decision).  The sums run in a fixed order (a strided partial
-sum per thread of 256, then a pairwise fold) that :func:`score_plain`
-repeats op for op, so the two are bitwise equal.  That order is not the
+``sc = Σ c·price``, ``sq = Σ c·pods`` over the items the pool uses, or 0
+when the pool falls short of the demand (NaN where a used price is NaN, as
+the host's ``e_total``) — in one launch of the hand-written CUDA kernel
+``csrc/score.cu`` (one CTA per decision).  The sums run in a fixed order
+(a strided partial sum per thread of 256, then a pairwise fold) that
+:func:`score_plain` repeats op for op, so the two are bitwise equal.  That order is not the
 host's ``counts @ perf``: the score only steers the golden bracket on the
 card, and the host rescores every pool exactly.
 
@@ -98,9 +99,14 @@ def score_plain(counts: torch.Tensor, perf: torch.Tensor, price: torch.Tensor,
     kernel's summation order (each product its own op: rounded before its
     add)."""
     c = counts.to(torch.float64)
-    sp = _fixed_order_sum(c * perf)
-    sc = _fixed_order_sum(c * price)
-    sq = _fixed_order_sum(c * pods)
-    ok = (sq >= req) & (sc > 0.0) & (sq > 0.0)
+    used = c != 0.0                  # the host sums only the chosen items
+
+    def term(x):
+        return torch.where(used, c * x, torch.zeros_like(c))
+
+    sp = _fixed_order_sum(term(perf))
+    sc = _fixed_order_sum(term(price))
+    sq = _fixed_order_sum(term(pods))
+    ok = (sq >= req) & ~(sc <= 0.0) & (sq > 0.0)
     e = (sp / sc) * (req / sq)
     return torch.where(ok, e, torch.zeros_like(e))

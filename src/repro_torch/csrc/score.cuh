@@ -5,12 +5,16 @@
 // Per row, in float64:
 //     sp = sum_i c[i] * perf[i],  sc = sum_i c[i] * price[i],
 //     sq = sum_i c[i] * pods[i]
-//     E  = (sp / sc) * (req / sq)  if sq >= req and sc > 0 and sq > 0
+//     E  = (sp / sc) * (req / sq)  if sq >= req and !(sc <= 0) and sq > 0
 //          else 0
+// over the columns with c[i] != 0 only, as the host's e_perf_cost sums
+// only the chosen items: a NaN price (a corrupted feed) on a row the pool
+// does not use leaves E finite, and one on a row it uses makes E NaN, as
+// on the host. On finite inputs skipping 0 * x changes no bit.
 // Summation order, fixed so that score_plain reproduces it bitwise, for
 // any CTA width: thread t of the first kScoreLanes adds the products of
-// columns t, t + kScoreLanes, ... left to right (columns past N add
-// 0.0 * 0.0), then the partial sums fold pairwise, p[t] = p[t] + p[t + s]
+// columns t, t + kScoreLanes, ... left to right (columns past N and
+// unused columns add 0.0), then the partial sums fold pairwise, p[t] = p[t] + p[t + s]
 // for s = kScoreLanes/2 .. 1: s = 128 and 64 through shared memory, s = 32
 // as warp 0 reads both halves, s = 16 .. 1 by warp shuffles, each the same
 // add. Built with --fmad=false: each product is rounded before its add.
@@ -45,11 +49,11 @@ __device__ double score_block(const long long* c,
     double sp = 0.0, sc = 0.0, sq = 0.0;
     for (long long k = 0; k < n; k += kScoreLanes) {
       const long long j = k + t;
-      const bool in = j < n;
-      const double cj = in ? static_cast<double>(c[j]) : 0.0;
-      sp = sp + cj * (in ? perf[j] : 0.0);
-      sc = sc + cj * (in ? price[j] : 0.0);
-      sq = sq + cj * (in ? pods[j] : 0.0);
+      const double cj = j < n ? static_cast<double>(c[j]) : 0.0;
+      const bool in = cj != 0.0;
+      sp = sp + (in ? cj * perf[j] : 0.0);
+      sc = sc + (in ? cj * price[j] : 0.0);
+      sq = sq + (in ? cj * pods[j] : 0.0);
     }
     r_sp[t] = sp;
     r_sc[t] = sc;
@@ -76,7 +80,7 @@ __device__ double score_block(const long long* c,
       sc = sc + __shfl_down_sync(kScoreMask, sc, s);
       sq = sq + __shfl_down_sync(kScoreMask, sq, s);
     }
-    const bool ok = (sq >= req) && (sc > 0.0) && (sq > 0.0);
+    const bool ok = (sq >= req) && !(sc <= 0.0) && (sq > 0.0);
     e = ok ? (sp / sc) * (req / sq) : 0.0;
   }
   return e;

@@ -83,6 +83,19 @@ def count_params(cfg: ModelConfig) -> int:
                    for _, pd in flat_schema(model_schema(cfg))))
 
 
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top-k + shared experts only):
+    an expert leaf (one whose axes hold ``"experts"``) counts at k/E."""
+    if cfg.n_experts == 0:
+        return count_params(cfg)
+    frac = cfg.n_experts_active / cfg.n_experts
+    total = 0
+    for _, pd in flat_schema(model_schema(cfg)):
+        n = int(np.prod(pd.shape))
+        total += int(n * frac) if "experts" in pd.axes else n
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
@@ -92,27 +105,33 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device, dtype):
         super().__init__()
-        if spec.ffn == "moe":
-            raise NotImplementedError(moe.NOT_PORTED)
         self.mixer_norm = layers.Norm(cfg, device, dtype)
         self.mixer = (layers.Attention(cfg, device, dtype)
                       if spec.mixer == "attn"
                       else mamba.Mamba(cfg, device, dtype))
-        if spec.ffn == "mlp":
+        self.ffn_kind = spec.ffn
+        if spec.ffn != "none":
             self.ffn_norm = layers.Norm(cfg, device, dtype)
-            self.ffn = layers.MLP(cfg, device, dtype)
+            self.ffn = (layers.MLP(cfg, device, dtype) if spec.ffn == "mlp"
+                        else moe.MoE(cfg, device, dtype))
         else:
             self.ffn = None
 
     def forward(self, x, cfg: ModelConfig, *, cache=None, pos=None,
                 make_cache=False):
+        """``(x, new_cache, aux)``: ``aux`` is the MoE load-balance loss of
+        this layer, or None for a layer without MoE."""
         h = self.mixer_norm(x)
         mix, new_cache = self.mixer(h, cfg, cache=cache, pos=pos,
                                     make_cache=make_cache)
         x = x + mix
-        if self.ffn is not None:
+        aux = None
+        if self.ffn_kind == "mlp":
             x = x + self.ffn(self.ffn_norm(x))
-        return x, new_cache
+        elif self.ffn_kind == "moe":
+            y, aux = self.ffn(self.ffn_norm(x), cfg)
+            x = x + y
+        return x, new_cache, aux
 
 
 class Transformer(nn.Module):
@@ -225,18 +244,24 @@ def forward(params: Transformer, cfg: ModelConfig,
             caches: Optional[Caches] = None, pos: Optional[int] = None,
             max_len: Optional[int] = None,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Caches]]:
-    """Returns ``(logits, moe_aux_mean, caches_out or None)``; the aux is 0
-    (no MoE layer runs in the port)."""
+    """Returns ``(logits, moe_aux_mean, caches_out or None)``: the aux is
+    summed over the MoE layers in layer order, in float32, and divided by
+    their count (0 without MoE layers)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     make_cache = mode == "prefill"
+    n_moe = max(1, sum(1 for spec in cfg.layout if spec.ffn == "moe"))
     with torch.no_grad():
         x = _embed_inputs(params, cfg, batch)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches: Optional[Caches] = (
             [] if make_cache or caches is not None else None)
         for i, layer in enumerate(params.layers):
             c = caches[i] if caches is not None else None
-            x, nc = layer(x, cfg, cache=c, pos=pos, make_cache=make_cache)
+            x, nc, aux = layer(x, cfg, cache=c, pos=pos,
+                               make_cache=make_cache)
+            if aux is not None:
+                aux_total = aux_total + aux
             if new_caches is not None:
                 new_caches.append(nc)
 
@@ -251,8 +276,7 @@ def forward(params: Transformer, cfg: ModelConfig,
             logits = logits.reshape(b, s, cfg.n_codebooks, cfg.vocab_size)
         if make_cache and max_len is not None:
             new_caches = _pad_caches(new_caches, cfg, max_len)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
-    return logits, aux, new_caches
+    return logits, aux_total / n_moe, new_caches
 
 
 def prefill(params: Transformer, cfg: ModelConfig,

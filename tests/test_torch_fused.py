@@ -98,6 +98,31 @@ def test_gss_many_equals_reference_numpy(seed):
     assert n_inf > 0 and n_masked > 0 and n_zero > 0
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gss_many_with_nan_prices_equals_reference_numpy(seed):
+    """A corrupted feed (the chaos plane's NaN burst) reaches an unhardened
+    policy's batch: NaN spot prices on some rows, masked away or not.  The
+    host's price minimum is then NaN, and so every objective row; the
+    device's normalisation must take the same NaN, not 1.0, or its prescan
+    selects pools the host never would."""
+    rng = np.random.default_rng(300 + seed)
+    be = port.make_backend("torch:fused:cpu")
+    n_nan_kept = 0
+    for k in range(8):
+        items = random_market(rng, max_items=14)
+        bad = rng.random(len(items)) < 0.4
+        items = [dataclasses.replace(it, spot_price=float("nan"))
+                 if b else it for it, b in zip(items, bad)]
+        reqs = [int(rng.integers(1, 60)) for _ in range(3)]
+        excludes = [None, bad if bad.any() else None,
+                    random_exclude(rng, len(items))]
+        got_r, got_p = _both(items, reqs, excludes, REF_NUMPY, be)
+        assert repr(got_r) == repr(got_p)      # NaN scores: compare text
+        n_nan_kept += bool(bad.any())
+    assert n_nan_kept > 0
+    assert be.device_cache_info()["fallback_solves"] == 0
+
+
 def test_gss_many_gcd_tier_equals_reference_numpy():
     """Rows above the threshold run at the market gcd on the device, as
     the host's gcd tier does, and select bitwise the same."""

@@ -21,12 +21,13 @@ from repro.configs import get_config as ref_get_config
 from repro.configs import list_archs as ref_list_archs
 from repro.models import count_params as ref_count_params
 from repro.models import decode_step as ref_decode_step
+from repro.models import forward as ref_forward
 from repro.models import init_params as ref_init_params
 from repro.models import prefill as ref_prefill
 from repro_torch.configs import get_config, list_archs
 from repro_torch.launch.serve import serve
-from repro_torch.models import (count_params, decode_step, init_cache,
-                                init_params, prefill)
+from repro_torch.models import (count_params, decode_step, forward,
+                                init_cache, init_params, prefill)
 from repro_torch.models.convert import (caches_from_reference,
                                         caches_to_reference,
                                         params_from_reference)
@@ -73,7 +74,7 @@ def _t(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-@pytest.mark.parametrize("arch", NON_MOE)
+@pytest.mark.parametrize("arch", NON_MOE + MOE)
 def test_prefill_and_decode_match_reference(arch):
     """prefill + 3 decode steps: logits of every step and the final caches
     within 1e-4 of the reference's."""
@@ -225,7 +226,7 @@ def _jax_serve(cfg, params, *, requests, batch, prompt_len, new_tokens,
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "falcon-mamba-7b",
-                                  "internvl2-1b", "musicgen-large"])
+                                  "internvl2-1b", "musicgen-large"] + MOE)
 def test_serve_greedy_tokens_match_reference_loop(arch):
     cfg_r, cfg_p, params_j, params_t = _params(arch, seed=1)
     kw = dict(requests=4, batch=2, prompt_len=8, new_tokens=4, seed=3)
@@ -252,9 +253,19 @@ def test_serve_partial_batch_serves_every_request():
 
 
 @pytest.mark.parametrize("arch", MOE)
-def test_moe_arch_raises_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(get_config(arch, smoke=True), None, CPU)
+def test_moe_forward_aux_matches_reference(arch):
+    """The train-mode forward's aux: the float32 sum of the MoE layers'
+    load-balance losses over their count, with equal logits."""
+    cfg_r, cfg_p, params_j, params_t = _params(arch, seed=5)
+    prompt = _inputs(cfg_p, np.random.default_rng(5), 2, 12)
+    lj, aux_j, _ = ref_forward(params_j, cfg_r, _j(prompt), mode="train")
+    lt, aux_t, caches = forward(params_t, cfg_p, _t(prompt), mode="train")
+    assert caches is None and aux_t.dtype == torch.float32
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=TOL)
+    assert abs(float(aux_t) - float(aux_j)) <= 2e-5
+    assert float(aux_t) > 0.5
+    assert init_params(get_config(arch, smoke=True),
+                       torch.Generator().manual_seed(0), CPU) is not None
 
 
 def test_entry_points_run_on_the_card_or_raise():

@@ -419,24 +419,37 @@ def test_backtest_compare_policies_matches_reference():
     assert port_out == ref_out
 
 
-# ------------------------------------------------ what is not ported yet ----
+# ------------------------------------------ the lazily imported layers ----
 
 @pytest.mark.parametrize("spec,module", [
     ("hardened", "repro_torch.chaos.guard"),
     ("kubepacs_region", "repro_torch.region.policy"),
     ("region_pinned:us-east-1", "repro_torch.region.policy"),
 ])
-def test_make_policy_names_the_unported_module(spec, module):
-    with pytest.raises(ImportError, match=module.replace(".", r"\.")):
-        port_sim.make_policy(spec)
+def test_make_policy_builds_the_ported_policies(spec, module):
+    """The lazy specs resolve to the port's class of the reference's name,
+    built with the same knobs."""
+    ref_cfg = region_scenario().region
+    want = ref_sim.make_policy(spec, tolerance=0.02, ttl_hours=3.0,
+                               region=ref_cfg)
+    got = port_sim.make_policy(spec, tolerance=0.02, ttl_hours=3.0,
+                               region=scenario_from_reference(
+                                   region_scenario()).region)
+    assert type(got).__module__ == module
+    assert type(got).__name__ == type(want).__name__
+    assert got.name == want.name
 
 
-@pytest.mark.parametrize("package,name", [
-    (port_chaos, "HardenedPolicy"), (port_region, "RegionAwarePolicy"),
-    (port_serve, "run_serving")])
-def test_lazy_package_symbols_name_the_unported_module(package, name):
-    with pytest.raises(ImportError, match="not ported yet"):
-        getattr(package, name)
+@pytest.mark.parametrize("package,ref_package,name", [
+    (port_chaos, ref_chaos, "HardenedPolicy"),
+    (port_region, ref_region, "RegionAwarePolicy"),
+    (port_serve, ref_serve, "run_serving")])
+def test_lazy_package_symbols_resolve_to_the_port(package, ref_package,
+                                                  name):
+    got, want = getattr(package, name), getattr(ref_package, name)
+    assert got.__module__.startswith(package.__name__ + ".")
+    assert got.__name__ == want.__name__
+    assert got.__module__.split(".")[-1] == want.__module__.split(".")[-1]
 
 
 def test_sim_packages_import_without_jax_or_reference():
@@ -449,6 +462,10 @@ def test_sim_packages_import_without_jax_or_reference():
             "import repro_torch.sim, repro_torch.risk, repro_torch.region\n"
             "import repro_torch.chaos, repro_torch.serve_sim\n"
             "import repro_torch.risk.backtest, repro_torch.sim.convert\n"
+            "import repro_torch.chaos.guard, repro_torch.region.policy\n"
+            "import repro_torch.serve_sim.sim, repro_torch.models.moe\n"
+            "assert repro_torch.chaos.HardenedPolicy\n"
+            "assert repro_torch.serve_sim.run_serving\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
