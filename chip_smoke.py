@@ -105,12 +105,35 @@ system's real sizes and holds every result to the host:
    2e-4, tokens equal); ``launch.serve.serve`` of 8 requests (batch 4,
    prompt 1024, 16 new tokens) with 24 of the 48 layers (62.3 GB of
    float32 weights drawn on the card), every logit finite, launches =
-   layers x batches, peak device memory within the card.
+   layers x batches, peak device memory within the card;
+14. training: the gradient functions against their plain versions at the
+   training shapes — ``FlashAttention`` (the kernel's ``(o, lse)``, then
+   ``flash_bwd_chunked``) at internlm2-1.8b's (B 4, S 1024, H 16, KV 8,
+   hd 128, bf16; bar 3e-2) and a float32 case (bar 2e-5), and
+   ``SelectiveScan`` (the kernel's ``y``, then the reverse chunk
+   recompute) at falcon-mamba-7b's (B 2, S 1024, di 8192, N 16, float32;
+   six gradients within 1e-4 of the largest), timing the kernel forwards,
+   both recompute backwards and SDPA forward + backward in turns with
+   ours; a two-layer float32 cut of each config at full width, three
+   ``make_train_step`` steps through the kernels against the same steps
+   through the plain versions (losses and grad norms within 1e-4,
+   launches = steps x layers x ``remat_passes``); full width:
+   internlm2-1.8b at all 24 layers (B 4, S 1024, 5 steps) and
+   falcon-mamba-7b at 8 of 64 layers (B 2, 3 steps), with losses, step
+   walls, tokens/s, share of the bf16 peak, launches a step and peak
+   memory; ``ElasticSpotTrainer`` on internlm2-1.8b's 2-layer cut
+   (a 6 GB checkpoint) through two interrupts with ``cover_dp`` on the
+   card, its trace and event log equal to the smoke twin's under
+   ``numpy``, then a restart that resumes at step 12, with the save and
+   restore walls; and ``launch.train.main(["--steps", "6"])`` on the
+   default device ("phase14" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
 calls queued behind a sleep kernel).  The line before the last is the
-kernel record (times, launches on the main paths, bounds); the last line
+kernel record (times, launches on the main paths, bounds; phase 14's
+training launches in ``launches_train`` and its gradient readings in
+``train``); the last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -120,7 +143,9 @@ with one CUDA card and ``nvcc`` (``CUDA_HOME``, default ``/usr/local/cuda``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -333,9 +358,10 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-13 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-14 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
-    13 in :func:`run_moe`); returns the kernel record."""
+    13 in :func:`run_moe`, 14 in :func:`run_train`); returns the kernel
+    record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -577,10 +603,16 @@ def run(dev) -> dict:
     sim = run_sim(dev)
     policies = run_policies(dev)
     moe = run_moe(dev)
+    train = run_train(dev)
     for k in kernels:
         k["launches_sim"] = sim.get(k["name"], 0)
         k["launches_policies"] = policies.get(k["name"], 0)
         k["launches"] += k["launches_sim"] + k["launches_policies"]
+        if k["name"] in ("flash_attention", "mamba_scan", "cover_dp"):
+            k["launches_train"] = train["launches"].get(k["name"], 0)
+            k["launches"] += k["launches_train"]
+        if k["name"] in train:
+            k["train"] = train[k["name"]]
         if k["name"] == "flash_attention":
             k["launches_moe"] = moe["launches"]
             k["launches"] += moe["launches"]
@@ -2025,6 +2057,474 @@ def run_moe(dev) -> dict:
     return {"launches": n_flash, "max_abs_err": a_err, "ms": a_ms,
             "plain_ms": ap_ms, "bound_ms": ab_ms, "bound_by": ab_by,
             "library_ms": al_ms}
+
+
+#: phase 14: the elastic trainer's market, request and ElasticConfig; its
+#: ``market_hours_per_check`` of 2 h fires two interrupts, at steps 3 and 12
+#: (8 h would add a straggler and two more recoveries of a 6 GB
+#: checkpoint; the smoke twin of both runs on the host in
+#: tests/test_torch_elastic.py)
+ELASTIC_MARKET_SEED = 7
+ELASTIC = dict(total_steps=12, ckpt_every=12, market_check_every=3,
+               market_hours_per_check=2.0, batch_rows=4, seq_len=1024,
+               keep_checkpoints=1)
+
+
+@contextlib.contextmanager
+def timed_checkpoints(torch, walls):
+    """Host seconds of every ``save_checkpoint`` / ``restore_checkpoint``
+    call (the trainer's, through the module), into ``walls["save"]`` and
+    ``walls["restore"]``; a restore is timed to the end of its copies to
+    the card."""
+    from repro_torch.train import checkpoint as ckpt
+
+    saved = ckpt.save_checkpoint, ckpt.restore_checkpoint
+
+    def timed(kind, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    ckpt.save_checkpoint = timed("save", saved[0])
+    ckpt.restore_checkpoint = timed("restore", saved[1])
+    try:
+        yield walls
+    finally:
+        ckpt.save_checkpoint, ckpt.restore_checkpoint = saved
+
+
+def rel_max(a, b) -> float:
+    """``max |a - b|`` over ``max(1, max |b|)``: absolute for values up to
+    1, relative to the largest magnitude beyond (a bf16 gradient of
+    magnitude m rounds by up to m / 256)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def rel_largest(a, b) -> float:
+    """``max |a - b|`` over the largest magnitude of ``b``."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def train_flops(cfg, tokens: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x parameters x tokens, plus the
+    attention products (:func:`attn_flops` a layer, forward and twice in
+    the backward)."""
+    from repro_torch.models import count_params
+
+    attn = sum(spec.mixer == "attn" for spec in cfg.layout)
+    hd = cfg.resolved_head_dim
+    return 6.0 * count_params(cfg) * tokens + 3.0 * attn * attn_flops(
+        batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, hd)
+
+
+def run_train(dev) -> dict:
+    """Phase 14 on ``dev``: training through the kernels; returns each
+    kernel's launches on the training path and the gradient functions'
+    readings."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Request, SpotMarketSimulator,
+                                  generate_catalog)
+    from repro_torch.core import backend as bmod
+    from repro_torch.core import cover_dp as cdp
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import count_params, init_params
+    from repro_torch.models.transformer import remat_passes
+    from repro_torch.runtime import ElasticConfig, ElasticSpotTrainer
+    from repro_torch.train.loop import make_train_step
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device=dev)
+    card = card_line()
+
+    def on_card(a, dtype, grad=False):
+        return torch.from_numpy(np.asarray(a)).to(
+            device=dev, dtype=dtype).requires_grad_(grad)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def reset():
+        flash_attention_cuda.launches = selective_scan_cuda.launches = 0
+        cdp.cover_dp.launches = 0
+
+    def launches():
+        return {"flash_attention": flash_attention_cuda.launches,
+                "mamba_scan": selective_scan_cuda.launches,
+                "cover_dp": cdp.cover_dp.launches}
+
+    # -- 14a: the gradient functions against their plain versions ----------
+    def hold_attn(label, shape, dtype, tol):
+        b, s, h, kv, hd = shape
+        q, k, v = (on_card(rng.normal(size=sh), dtype, grad=True)
+                   for sh in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+        do = on_card(rng.normal(size=(b, s, h, hd)), dtype)
+        o_k, lse_k = flash_attention_cuda(q.detach(), k.detach(), v.detach())
+        o = ops.FlashAttention.apply(q, k, v, True, True, s, s, False)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        o_p, lse_p = ref.flash_fwd_chunked(q.detach(), k.detach(),
+                                           v.detach(), q_chunk=s, kv_chunk=s)
+        want = ref.flash_bwd_chunked(q.detach(), k.detach(), v.detach(), o_p,
+                                     lse_p, do, q_chunk=s, kv_chunk=s)
+        errs = {"o": rel_max(o, o_p), "lse": rel_max(lse_k, lse_p)}
+        errs.update({n: rel_max(g, w) for n, g, w in zip(("dq", "dk", "dv"),
+                                                       grads, want)})
+        check(torch.equal(o.detach(), o_k),
+              f"phase14 attention {label}: the Function's o is not the "
+              "kernel's")
+        check(max(errs.values()) <= tol,
+              f"phase14 attention {label}: errors {errs} > {tol}")
+        print(f"phase14 attention gradients {label} {shape} causal: "
+              f"(o, lse) from the kernel, (dq, dk, dv) through "
+              f"flash_bwd_chunked from the kernel's (o, lse), against "
+              f"flash_fwd_chunked + flash_bwd_chunked: errors (max |diff| / "
+              f"max(1, max |plain|)) " + ", ".join(
+                  f"{n} {e:.3e}" for n, e in errs.items()) + f" (bar {tol})")
+        return q, k, v, do, o_k, lse_k, max(errs.values())
+
+    hold_attn("float32", (1, 256, 4, 2, 64), torch.float32,
+              ATTN_TOL["float32"])
+    ashape = (4, 1024, 16, 8, 128)              # internlm2-1.8b training
+    q, k, v, do, o_k, lse_k, a_err = hold_attn("internlm2-1.8b bf16", ashape,
+                                               torch.bfloat16,
+                                               ATTN_TOL["bfloat16"])
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    fwd_ms = cuda_ms(torch, lambda: flash_attention_cuda(qd, kd, vd), 20)
+    bwd_ms = cuda_ms(torch, lambda: ref.flash_bwd_chunked(
+        qd, kd, vd, o_k, lse_k, do, q_chunk=1024, kv_chunk=1024), 10)
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    timed = {"kernel": lambda: torch.autograd.grad(ops.FlashAttention.apply(
+                 q, k, v, True, True, 1024, 1024, False), (q, k, v), do),
+             "sdpa": lambda: torch.autograd.grad(
+                 F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True),
+                 (qt, kt, vt), dot)}
+    turns = {"kernel": [], "sdpa": []}
+    for who in ("kernel", "sdpa", "sdpa", "kernel"):
+        turns[who].append(cuda_ms(torch, timed[who], 10))
+    fb_ms, sfb_ms = median(turns["kernel"]), median(turns["sdpa"])
+    b, s, h, kvh, hd = ashape
+    fl = attn_flops(b, s, s, h, kvh, hd)
+    print(f"phase14 attention at the internlm2-1.8b training shape (B 4, S "
+          f"1024, H 16, KV 8, hd 128, bf16, causal; {card}): kernel forward "
+          f"{fwd_ms:.4f} ms; recompute backward (flash_bwd_chunked) "
+          f"{bwd_ms:.4f} ms; forward + backward {fb_ms:.4f} ms (turns "
+          f"{turns['kernel']}, {3 * fl / fb_ms / 1e9:.1f} TFLOP/s of 3 x "
+          f"the forward's products); scaled_dot_product_attention forward + "
+          f"backward {sfb_ms:.4f} ms (turns {turns['sdpa']}, "
+          f"{3 * fl / sfb_ms / 1e9:.1f} TFLOP/s); ours / SDPA "
+          f"{fb_ms / sfb_ms:.3f}")
+    del q, k, v, do, o_k, lse_k, qd, kd, vd, qt, kt, vt, dot, timed
+    release()
+
+    def scan_args(b, s, di, n, dtype):
+        """As falcon-mamba's layers feed the scan at init (phase 8)."""
+        xr = rng.normal(size=(b, s, di))
+        dt = np.log1p(np.exp(-4.6 + 0.5 * rng.normal(size=(b, s, di))))
+        A = -np.broadcast_to(np.arange(1, n + 1), (di, n)).copy()
+        return [on_card(xr / (1 + np.exp(-xr)), dtype, True),
+                on_card(dt, dtype, True), on_card(A, torch.float32, True),
+                on_card(rng.normal(size=(b, s, n)), dtype, True),
+                on_card(rng.normal(size=(b, s, n)), dtype, True),
+                on_card(np.ones(di), torch.float32, True)]
+
+    sshape = (2, 1024, 8192, 16)                # falcon-mamba-7b training
+    args = scan_args(*sshape, torch.float32)
+    dy = on_card(rng.normal(size=sshape[:3]), torch.float32)
+    y, _ = ops.SelectiveScan.apply(*args, None, True, 256)
+    g_k = torch.autograd.grad(y, args, dy)
+    y_p, _ = ref.selective_scan_chunked(*args, chunk=256)
+    g_p = torch.autograd.grad(y_p, args, dy)
+    names = ("x", "dt", "A", "B", "C", "D")
+    errs = {"y": rel_largest(y, y_p)}
+    errs.update({f"d{n}": rel_largest(a, b) for n, a, b in zip(names, g_k,
+                                                               g_p)})
+    s_err = max(errs.values())
+    check(s_err <= SCAN_TOL["float32"],
+          f"phase14 scan gradients: errors {errs} > {SCAN_TOL['float32']}")
+    print(f"phase14 scan gradients at the falcon-mamba-7b training shape (B "
+          f"2, S 1024, di 8192, N 16, float32): y from the kernel and the "
+          f"six gradients through the chunk-by-chunk reverse recompute, "
+          f"against autograd through selective_scan_chunked: errors "
+          f"(max |diff| / largest |plain|) " + ", ".join(
+              f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (bar {SCAN_TOL['float32']})")
+    del args, dy, y, g_k, y_p, g_p
+    release()
+    args = [t.detach() for t in scan_args(*sshape, torch.bfloat16)]
+    dy = on_card(rng.normal(size=sshape[:3]), torch.bfloat16)
+    sfwd_ms = cuda_ms(torch, lambda: selective_scan_cuda(*args), 20)
+    sbwd_ms = cuda_ms(torch, lambda: ops.scan_backward(
+        *args, None, dy, None, 256), 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ops.scan_backward(*args, None, dy, None, 256)
+    torch.cuda.synchronize()
+    sbwd_mem = torch.cuda.max_memory_allocated(dev) - base
+    print(f"phase14 scan at the falcon-mamba-7b training shape (bf16; "
+          f"{card}): kernel forward {sfwd_ms:.4f} ms; recompute backward "
+          f"(scan_backward, chunks of 256 in reverse) {sbwd_ms:.4f} ms, "
+          f"{sbwd_mem} B of device memory above its inputs")
+    del args, dy
+    release()
+    print(f"phase14a took {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 14b: a 2-layer float32 cut at full width, kernels vs plain --------
+    t0 = time.perf_counter()
+    ocfg = optim.OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    for seed, arch in enumerate(("internlm2-1.8b", "falcon-mamba-7b")):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, dtype="float32", n_layers=2,
+                                  layout=full.layout[:2])
+        runs = {}
+        for impl in ("cuda", "chunked"):
+            c = dataclasses.replace(cfg, attention_impl=impl)
+            params = init_params(c, gen.manual_seed(40 + seed), dev)
+            opt = optim.init_opt_state(params)
+            step = make_train_step(c, ocfg)
+            reset()
+            got = []
+            for i in range(3):
+                batch = make_batch(c, DataConfig(seed=seed), step=i, batch=2,
+                                   seq=1024)
+                params, opt, m = step(params, opt, batch)
+                got.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[impl] = (got, launches())
+            del params, opt
+            release()
+        n_k = runs["cuda"][1]["flash_attention"] + runs["cuda"][1][
+            "mamba_scan"]
+        want = 3 * cfg.n_layers * remat_passes(cfg)
+        check(n_k == want, f"phase14 {arch} 2-layer: {n_k} kernel launches "
+              f"in 3 steps, expected {want} (remat {cfg.remat_policy})")
+        check(sum(runs["chunked"][1].values()) == 0,
+              f"phase14 {arch} 2-layer: the plain run launched a kernel")
+        diff = max(abs(a - b) / abs(b) for ka, kb in zip(
+            runs["cuda"][0], runs["chunked"][0]) for a, b in zip(ka, kb))
+        check(diff <= 1e-4, f"phase14 {arch} 2-layer f32: losses / grad "
+              f"norms {runs['cuda'][0]} vs {runs['chunked'][0]}")
+        print(f"phase14 {arch}: 2-layer float32 cut at full width, 3 train "
+              f"steps (B 2, S 1024, remat {cfg.remat_policy}) through the "
+              f"kernels vs the plain versions: (loss, grad norm) "
+              f"{runs['cuda'][0]} vs {runs['chunked'][0]}, largest relative "
+              f"diff {diff:.3e} (bar 1e-4); kernel launches {n_k} = 3 steps "
+              f"x {cfg.n_layers} layers x {remat_passes(cfg)} (forward + "
+              f"recompute)")
+    print(f"phase14b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 14c: full width ---------------------------------------------------
+    t0 = time.perf_counter()
+    train_launches = collections.Counter()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    # one traced step of internlm2 (falcon's step is its 8 scan backwards,
+    # timed in 14a; a trace costs ~10 s of the phase)
+    for arch, layers, batch, n_steps, kname, trace in (
+            ("internlm2-1.8b", 24, 4, 5, "flash_attention", True),
+            ("falcon-mamba-7b", 8, 2, 3, "mamba_scan", False)):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers,
+                                  layout=full.layout[:layers])
+        params = init_params(cfg, gen.manual_seed(50), dev)
+        opt = optim.init_opt_state(params)
+        # the elastic trainer's default schedule (5 warm-up steps)
+        step = make_train_step(cfg, optim.OptConfig(warmup_steps=5,
+                                                    total_steps=1000))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, walls = [], []
+        reset()
+        for i in range(n_steps):
+            b = make_batch(cfg, DataConfig(seed=1), step=i, batch=batch,
+                           seq=1024)
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))        # synchronises
+            walls.append(time.perf_counter() - t1)
+        got = launches()
+        train_launches.update(got)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = n_steps * layers * remat_passes(cfg)
+        check(all(math.isfinite(x) for x in losses),
+              f"phase14 {arch}: losses {losses}")
+        check(got[kname] == want and sum(got.values()) == want,
+              f"phase14 {arch}: launches {got}, expected {want} {kname}")
+        check(peak < total, f"phase14 {arch}: peak {peak} B over {total} B")
+        wall = median(walls[1:])
+        tokens = batch * 1024
+        flops = train_flops(cfg, tokens, batch, 1024)
+        print(f"phase14 train {arch} ({card}): full width, {layers} of "
+              f"{full.n_layers} layers ({count_params(cfg)} params, float32 "
+              f"with float32 AdamW moments; {cfg.dtype} compute, remat "
+              f"{cfg.remat_policy}); B {batch} x S 1024, {n_steps} steps; "
+              f"losses {losses}; step walls s "
+              f"{[round(w, 4) for w in walls]}, warm median {wall:.4f} s; "
+              f"{tokens / wall:.1f} tokens/s; model FLOPs a step "
+              f"{flops:.4e} (6 x params x tokens + attention), "
+              f"{flops / wall / BF16_TC_OPS_PER_S:.2%} of the dense bf16 "
+              f"peak; {kname} launches a step {got[kname] / n_steps:g}; "
+              f"peak device memory {peak} B of {total} B")
+        if trace:
+            t_wall, busy, top = traced(torch, lambda: step(params, opt, b))
+            print(f"phase14 trace {arch} train step: traced wall "
+                  f"{t_wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+                  f"{1 - busy / t_wall:.4f}); by kernel: " + "; ".join(
+                      f"{k} {v:.3f} ms" for k, v in top[:10]))
+        del params, opt, step
+        release()
+    print(f"phase14c took {time.perf_counter() - t0:.1f} s")
+
+    # -- 14d: ElasticSpotTrainer on the card -------------------------------
+    t0 = time.perf_counter()
+    full = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(full, n_layers=2, layout=full.layout[:2])
+    req = Request(pods=64, cpu_per_pod=4, mem_per_pod=8)
+
+    def market():
+        return SpotMarketSimulator(generate_catalog(seed=ELASTIC_MARKET_SEED),
+                                   seed=ELASTIC_MARKET_SEED)
+
+    def events(out):
+        return [{**e, "detail": {k: v for k, v in e["detail"].items()
+                                 if k not in ("wall_s", "recovery_s")}}
+                for e in out["events"]]
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="phase14-", dir=os.path.join(ROOT, "build"))
+    walls = {"save": [], "restore": []}
+    try:
+        reset()
+        with timed_checkpoints(torch, walls):
+            tr = ElasticSpotTrainer(cfg, req, market(),
+                                    os.path.join(d, "run"),
+                                    ElasticConfig(**ELASTIC), device=dev)
+            out = tr.run()
+        got = launches()
+        train_launches.update(got)
+        handled = [e for e in out["events"]
+                   if e["event"] in ("interrupt", "straggler")]
+        check(out["steps"] == 12 and len(out["losses"]) == 12
+              and all(math.isfinite(x) for x in out["losses"]),
+              f"phase14 elastic: steps {out['steps']} losses "
+              f"{out['losses']}")
+        check(out["interrupts_handled"] >= 1 and handled,
+              "phase14 elastic: no interrupt or straggler handled")
+        check(all(e["detail"]["pods_after"] >= req.pods for e in handled)
+              and tr.pool.total_pods >= req.pods,
+              f"phase14 elastic: a pool below {req.pods} pods after an "
+              "event")
+        check(got["cover_dp"] > 0, "phase14 elastic: cover_dp not launched")
+        want = 12 * cfg.n_layers * remat_passes(cfg)
+        check(got["flash_attention"] == want,
+              f"phase14 elastic: {got['flash_attention']} flash_attention "
+              f"launches, expected {want}")
+        trace = tr.cluster.recorder.dumps()
+        saved = bmod._DEFAULT
+        bmod.set_backend("numpy")
+        try:
+            twin = ElasticSpotTrainer(get_config("internlm2-1.8b",
+                                                 smoke=True),
+                                      req, market(), os.path.join(d, "twin"),
+                                      ElasticConfig(**ELASTIC), device=dev)
+            out_twin = twin.run()
+        finally:
+            bmod._DEFAULT = saved
+        check(twin.cluster.recorder.dumps() == trace,
+              "phase14 elastic: the cluster trace differs from the smoke "
+              "twin's under numpy")
+        check(events(out_twin) == events(out),
+              "phase14 elastic: the event log differs from the smoke twin's "
+              "under numpy")
+        files = os.path.join(d, "run", "step_00000012")
+        nbytes = sum(os.path.getsize(os.path.join(files, f))
+                     for f in os.listdir(files))
+        del tr
+        release()
+        reset()
+        with timed_checkpoints(torch, walls):
+            tr2 = ElasticSpotTrainer(cfg, req, market(),
+                                     os.path.join(d, "run"),
+                                     ElasticConfig(**{**ELASTIC,
+                                                      "total_steps": 14}),
+                                     device=dev)
+            out2 = tr2.run()
+        got2 = launches()
+        train_launches.update(got2)
+        check(any(e["event"] == "resume" and e["detail"]["from"] == 12
+                  for e in out2["events"]) and out2["steps"] == 14,
+              f"phase14 elastic: the restart did not resume at 12: "
+              f"{events(out2)}")
+        print(f"phase14 elastic internlm2-1.8b ({card}): full width, 2 of "
+              f"24 layers ({count_params(cfg)} params); market "
+              f"generate_catalog(seed={ELASTIC_MARKET_SEED}), request {req}, "
+              f"{ELASTIC}; losses {[round(x, 4) for x in out['losses']]}; "
+              f"events {[(e['step'], e['event']) for e in out['events']]}; "
+              f"pods after each {[e['detail']['pods_after'] for e in handled]}"
+              f"; trace ({out['trace_records']} records) and event log equal "
+              f"to the smoke twin's under numpy; recovery s "
+              f"{[round(x, 3) for x in out['recovery_times']]}; launches "
+              f"{got}; checkpoint {nbytes} B; save s "
+              f"{[round(x, 3) for x in walls['save']]}, restore s "
+              f"{[round(x, 3) for x in walls['restore']]} (the last: the "
+              f"restart's); restart resumed at 12 and ran to "
+              f"{out2['steps']} (launches {got2})")
+        del tr2
+        release()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"phase14d took {time.perf_counter() - t0:.1f} s")
+
+    # -- 14e: the launcher on the default device ---------------------------
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="phase14-", dir=os.path.join(ROOT, "build"))
+    buf = io.StringIO()
+    try:
+        reset()
+        with contextlib.redirect_stdout(buf):
+            launch_train.main(["--steps", "6", "--ckpt-dir", d])
+        got = launches()
+        train_launches.update(got)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res = json.loads(buf.getvalue())
+    check(res["steps"] == 6 and math.isfinite(res["first_loss"])
+          and math.isfinite(res["final_loss"]),
+          f"phase14 launcher: {res}")
+    check(got["flash_attention"] > 0 and got["cover_dp"] > 0,
+          f"phase14 launcher: launches {got}")
+    print(f"phase14 launch.train.main(['--steps', '6']) on the default "
+          f"device: arch {res['arch']}, first loss {res['first_loss']:.4f}, "
+          f"final loss {res['final_loss']:.4f}, interrupts handled "
+          f"{res['interrupts_handled']}; launches {got} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"phase14 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": dict(train_launches),
+            "flash_attention": {"max_abs_err_grad": a_err, "fwd_ms": fwd_ms,
+                                "bwd_ms": bwd_ms, "fwd_bwd_ms": fb_ms,
+                                "sdpa_fwd_bwd_ms": sfb_ms},
+            "mamba_scan": {"max_rel_err_grad": s_err, "fwd_ms": sfwd_ms,
+                           "bwd_ms": sbwd_ms}}
 
 
 if __name__ == "__main__":

@@ -4,6 +4,8 @@
 * :func:`flash_fwd_chunked` — chunked online-softmax attention returning
   ``(o, lse)``; the CPU path of the model and what the CUDA flash kernel
   is held to on the card.  :func:`flash_attention_ref` drops the ``lse``.
+* :func:`flash_bwd_chunked` — the flash backward by block recompute from
+  ``(o, lse)``: the backward of ``ops.flash_attention`` on every device.
 * :func:`selective_scan_ref` — sequential Mamba-1 selective scan.
 * :func:`selective_scan_chunked` — chunked associative-scan formulation
   (the CPU path of the model), returning ``(y, h_final)``.
@@ -135,6 +137,63 @@ def flash_fwd_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 NEG_INF))
     out = torch.cat(outs, dim=1).reshape(b, sq, h, hd)
     return out, torch.cat(lses, dim=1)
+
+
+def flash_bwd_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                      causal: bool = True, q_offset: int = 0,
+                      kv_len: Optional[int] = None, q_chunk: int = 512,
+                      kv_chunk: int = 512
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash backward: recompute probabilities per (q, kv) block pair.
+
+    dv = pᵀ·do ;  dp = do·vᵀ ;  ds = p⊙(dp − Δ)·scale with Δ = Σ(do⊙o) ;
+    dq += ds·k ;  dk += dsᵀ·q.   Live memory is one block pair.  ``lse``
+    is laid out ``(B,Sq,KV,G)``, as :func:`flash_fwd_chunked` and the
+    kernel emit it; ``(dq, dk, dv)`` come back in the inputs' dtypes."""
+    b, sq, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = _gqa_fold(q, k)
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    assert sq % q_chunk == 0 and skv % kv_chunk == 0, (sq, q_chunk, skv,
+                                                       kv_chunk)
+    nq, nk = sq // q_chunk, skv // kv_chunk
+    scale = 1.0 / (hd ** 0.5)
+
+    qg = q.reshape(b, sq, kv, g, hd)
+    dog = do.reshape(b, sq, kv, g, hd)
+    lseg = lse.reshape(b, sq, kv, g)
+    delta = torch.sum(dog.float() * o.reshape(b, sq, kv, g, hd).float(),
+                      dim=-1)                                  # (b,sq,kv,g)
+    dk = torch.zeros((b, skv, kv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, skv, kv, hd), dtype=torch.float32, device=q.device)
+    dqs: List[torch.Tensor] = []
+    for iq in range(nq):
+        rows = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        q_blk, lse_blk, delta_blk = qg[:, rows], lseg[:, rows], delta[:, rows]
+        dof = dog[:, rows].float()
+        qf = q_blk.float()
+        dq_blk = torch.zeros((b, q_chunk, kv, g, hd), dtype=torch.float32,
+                             device=q.device)
+        for ik in range(nk):
+            cols = slice(ik * kv_chunk, (ik + 1) * kv_chunk)
+            k_blk, v_blk = k[:, cols], v[:, cols]
+            s = torch.einsum("bqkgh,btkh->bqkgt", q_blk, k_blk).float() \
+                * scale
+            mask = _mask(q_chunk, kv_chunk, q_offset + iq * q_chunk,
+                         ik * kv_chunk, causal, kv_len, q.device)
+            p = torch.where(mask[None, :, None, None, :],
+                            torch.exp(s - lse_blk[..., None]), 0.0)
+            dv[:, cols] += torch.einsum("bqkgt,bqkgh->btkh", p, dof)
+            dp = torch.einsum("bqkgh,btkh->bqkgt", dof, v_blk.float())
+            ds = p * (dp - delta_blk[..., None]) * scale
+            dq_blk = dq_blk + torch.einsum("bqkgt,btkh->bqkgh", ds,
+                                           k_blk.float())
+            dk[:, cols] += torch.einsum("bqkgt,bqkgh->btkh", ds, qf)
+        dqs.append(dq_blk)
+    dq = torch.cat(dqs, dim=1).reshape(b, sq, h, hd).to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

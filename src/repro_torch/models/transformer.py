@@ -1,27 +1,35 @@
-"""Heterogeneous decoder stacks: schema → parameters, forward, prefill, decode.
+"""Heterogeneous decoder stacks: schema → parameters, forward, loss,
+prefill, decode.
 
 The reference scans a repeating period of stacked layers; here the
 ``cfg.n_layers`` layers are unrolled into an ``nn.ModuleList`` (layer
 ``prefix_layers + p·scan_period + j`` is the reference's ``body[j]`` at
 period ``p``).  Three modes share one code path, as in the reference:
 
-  * train   — causal forward, no caches
-  * prefill — the same forward, emitting decode caches grown to ``max_len``
-  * decode  — one token against the caches (KV written in place at
-    ``pos``; the SSM state replaced)
+  * train   — causal forward with autograd (the caller's grad mode), each
+    layer under ``cfg.remat_policy`` (:func:`_remat`), no caches
+  * prefill — the same forward under ``no_grad``, emitting decode caches
+    grown to ``max_len``
+  * decode  — one token against the caches under ``no_grad`` (KV written
+    in place at ``pos``; the SSM state replaced)
 
 Parameters are a :class:`Transformer` module (built by :func:`init_params`
-or ``convert.params_from_reference``); caches are a list with one dict per
-layer.  Inference only: parameters do not require grad.
+or ``convert.params_from_reference``), its leaves created frozen
+(``requires_grad=False``): the train step turns them on.  Caches are a
+list with one dict per layer.  :func:`loss_fn` is the reference's causal
+LM loss; :func:`reference_ranks` gives each leaf the rank it has in the
+reference's stacked tree, which AdamW's decay rule reads.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from .. import resolve_device
 from ..configs.base import LayerSpec, ModelConfig
@@ -75,6 +83,18 @@ def flat_schema(tree: Dict[str, Any], prefix: str = ""
             out.append((path, sub))
         else:
             out.extend(flat_schema(sub, path + "."))
+    return out
+
+
+def reference_ranks(cfg: ModelConfig) -> Dict[str, int]:
+    """The rank of each leaf (by dotted path) in the reference's tree: a
+    body layer's leaves are stacked over periods there (one more axis), a
+    prefix layer's and the top-level leaves are as they are here."""
+    out = {}
+    for path, pd in flat_schema(model_schema(cfg)):
+        parts = path.split(".")
+        stacked = parts[0] == "layers" and int(parts[1]) >= cfg.prefix_layers
+        out[path] = len(pd.shape) + int(stacked)
     return out
 
 
@@ -135,10 +155,13 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The model's parameters as modules, uninitialised."""
+    """The model's parameters as modules, uninitialised; ``cfg`` is the
+    config it was built for (its layout decides the reference tree a
+    checkpoint holds)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
+        self.cfg = cfg
         dtype = getattr(torch, cfg.param_dtype)
         schema = model_schema(cfg)
         self.embed = layers.Params(schema["embed"], device, dtype)
@@ -239,6 +262,42 @@ def _embed_inputs(params: Transformer, cfg: ModelConfig,
     return x.to(dt)
 
 
+#: matmuls without batch dimensions: the ops whose outputs the ``"dots"``
+#: policy saves (the counterpart of ``dots_with_no_batch_dims_saveable``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` (one layer) under ``cfg.remat_policy``: ``"none"`` as it is;
+    ``"full"`` recomputed in the backward (non-reentrant checkpoint);
+    ``"dots"`` recomputed except the outputs of 2-D matmuls, which are
+    saved (selective activation checkpointing).  Under either policy the
+    layer's forward, its kernel launch with it, runs again in the backward
+    pass."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(cfg.remat_policy)
+
+
+def remat_passes(cfg: ModelConfig) -> int:
+    """How many times a train step runs each layer's forward (and launches
+    its sequence kernel): once, and once more in the backward under a
+    remat policy."""
+    return 1 if cfg.remat_policy == "none" else 2
+
+
 def forward(params: Transformer, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, mode: str = "train",
             caches: Optional[Caches] = None, pos: Optional[int] = None,
@@ -246,20 +305,26 @@ def forward(params: Transformer, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Caches]]:
     """Returns ``(logits, moe_aux_mean, caches_out or None)``: the aux is
     summed over the MoE layers in layer order, in float32, and divided by
-    their count (0 without MoE layers)."""
+    their count (0 without MoE layers).  Train mode keeps the caller's
+    grad mode; prefill and decode run without autograd."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     make_cache = mode == "prefill"
     n_moe = max(1, sum(1 for spec in cfg.layout if spec.ffn == "moe"))
-    with torch.no_grad():
+    remat = mode == "train" and torch.is_grad_enabled()
+    with torch.set_grad_enabled(remat):
         x = _embed_inputs(params, cfg, batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches: Optional[Caches] = (
             [] if make_cache or caches is not None else None)
         for i, layer in enumerate(params.layers):
             c = caches[i] if caches is not None else None
-            x, nc, aux = layer(x, cfg, cache=c, pos=pos,
-                               make_cache=make_cache)
+            if remat:
+                x, nc, aux = _remat(functools.partial(layer, cfg=cfg),
+                                    cfg)(x)
+            else:
+                x, nc, aux = layer(x, cfg, cache=c, pos=pos,
+                                   make_cache=make_cache)
             if aux is not None:
                 aux_total = aux_total + aux
             if new_caches is not None:
@@ -277,6 +342,38 @@ def forward(params: Transformer, cfg: ModelConfig,
         if make_cache and max_len is not None:
             new_caches = _pad_caches(new_caches, cfg, max_len)
     return logits, aux_total / n_moe, new_caches
+
+
+# ---------------------------------------------------------------------------
+# Losses and steps
+# ---------------------------------------------------------------------------
+
+def loss_fn(params: Transformer, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor], z_loss_weight: float = 1e-4
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(total, metrics)``: mean cross-entropy over the targets that are
+    not masked (``< 0``), plus the z-loss and ``router_aux_weight`` × the
+    MoE aux, as the reference's ``loss_fn``."""
+    logits, aux, _ = forward(params, cfg, batch, mode="train")
+    logits = logits.float()
+    targets = batch["targets"].long()
+    if cfg.input_mode == "audio_codes":
+        targets = torch.movedim(targets, 1, 2)         # (B,K,S) -> (B,S,K)
+    if cfg.input_mode == "vlm":
+        pad = -torch.ones(targets.shape[:1] + (cfg.vision_prefix,),
+                          dtype=targets.dtype, device=targets.device)
+        targets = torch.cat([pad, targets], dim=1)
+    mask = (targets >= 0).float()
+    safe_t = torch.clamp(targets, min=0)
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1, safe_t[..., None])[..., 0]
+    ce = (lse - true_logit) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = ce.sum() / denom
+    zl = z_loss_weight * ((lse * mask) ** 2).sum() / denom
+    total = loss + zl + cfg.router_aux_weight * aux
+    metrics = {"loss": loss, "z_loss": zl, "moe_aux": aux, "tokens": denom}
+    return total, metrics
 
 
 def prefill(params: Transformer, cfg: ModelConfig,
