@@ -126,14 +126,37 @@ system's real sizes and holds every result to the host:
    card, its trace and event log equal to the smoke twin's under
    ``numpy``, then a restart that resumes at step 12, with the save and
    restore walls; and ``launch.train.main(["--steps", "6"])`` on the
-   default device ("phase14" lines).
+   default device ("phase14" lines);
+15. the cost model and the sharding layer: (a) ``roofline.analyze_step``
+   of internlm2-1.8b's prefill (B 8 x S 1024) and one decode step (B 8
+   against a 1056-long cache) at full width and depth, counted on ``meta``,
+   beside each step's warm median on the card (CUDA events a call), with
+   the share ``step_s / measured``; the two kernel ops' counted costs equal
+   to ``attn_bound`` / ``scan_bound``; qwen2.5-14b's full-width decode_32k
+   cell counted on ``meta`` with no device or host memory of its size;
+   (b) on a 1-rank NCCL group and ``make_local_mesh()`` with
+   ``single_pod_rules(fsdp=True)``, ``attn_mode="auto"`` and
+   ``ep_shard_map``: internlm2-1.8b served through ``make_sharded_prefill``
+   / ``make_sharded_decode`` (batch 8, prompt 1024, 8 new tokens) with
+   greedy tokens equal to the unsharded path's and one ``flash_attention``
+   launch a layer, the walls of both, and one ``make_sharded_train_step``
+   step of the 2-layer float32 cut within 1e-4 of ``make_train_step``'s;
+   (c) ServeSim's roofline mode against the analytic one on
+   ``generate_catalog(seed=3, max_offerings=60)`` (ranking, SLO mask,
+   relative latency equal) and bench_serve's diurnal run under
+   ``serving_slo`` with the roofline profile, ``torch`` byte-equal to
+   ``numpy``, ``cover_dp`` launched; (d) ``python -m
+   repro_torch.launch.dryrun --arch internvl2-1b --shape decode_32k
+   --multi-pod`` in a subprocess: status ok on 512 fake ranks
+   ("phase15" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
 calls queued behind a sleep kernel).  The line before the last is the
 kernel record (times, launches on the main paths, bounds; phase 14's
 training launches in ``launches_train`` and its gradient readings in
-``train``); the last line
+``train``, phase 15's sharded and roofline-serving launches in
+``launches_cost``); the last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -158,15 +181,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM data-sheet peaks: HBM3 bandwidth, the non-tensor float64 and
-#: float32 rates, the dense bf16 tensor-core rate
+#: H100 SXM data-sheet peaks: HBM3 bandwidth, the non-tensor float64 rate,
+#: the dense bf16 tensor-core rate (the sequence kernels' bounds,
+#: ``attn_bound`` and ``scan_bound``, come from ``repro_torch.roofline``,
+#: the cost model's one source of them)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
-FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
-#: special-function-unit rate (exp): 132 SMs x 16 MUFU results a clock
-#: (CUDA programming guide, compute capability 9.0) x 1.98 GHz boost clock
-SFU_OPS_PER_S = 132 * 16 * 1.98e9
 TOLERANCE = 0.01
 #: SM clock cycles a second, to size the sleep kernel of ``cuda_ms`` (an
 #: upper estimate: the sleep only has to outlast the host's queueing)
@@ -358,10 +379,10 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-14 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-15 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
-    13 in :func:`run_moe`, 14 in :func:`run_train`); returns the kernel
-    record."""
+    13 in :func:`run_moe`, 14 in :func:`run_train`, 15 in
+    :func:`run_cost`); returns the kernel record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -604,6 +625,7 @@ def run(dev) -> dict:
     policies = run_policies(dev)
     moe = run_moe(dev)
     train = run_train(dev)
+    cost = run_cost(dev)
     for k in kernels:
         k["launches_sim"] = sim.get(k["name"], 0)
         k["launches_policies"] = policies.get(k["name"], 0)
@@ -613,6 +635,9 @@ def run(dev) -> dict:
             k["launches"] += k["launches_train"]
         if k["name"] in train:
             k["train"] = train[k["name"]]
+        if k["name"] in ("flash_attention", "cover_dp"):
+            k["launches_cost"] = cost["launches"].get(k["name"], 0)
+            k["launches"] += k["launches_cost"]
         if k["name"] == "flash_attention":
             k["launches_moe"] = moe["launches"]
             k["launches"] += moe["launches"]
@@ -1086,38 +1111,6 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
-def attn_flops(b, sq, skv, h, kv, hd, causal=True, q_offset=0):
-    """4 hd flops (S = Q K^T and P V) per valid (query, key) pair."""
-    qpos = q_offset + np.arange(sq)
-    pairs = int(np.minimum(qpos + 1, skv).sum()) if causal else sq * skv
-    return 4 * hd * pairs * b * h
-
-
-def attn_bound(b, sq, skv, h, kv, hd, elem, causal=True, q_offset=0):
-    """q, k, v read and o, lse written once over HBM; or
-    :func:`attn_flops` over the dense bf16 tensor-core rate."""
-    nbytes = elem * (2 * b * sq * h * hd + 2 * b * skv * kv * hd) \
-        + 4 * b * sq * h
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = attn_flops(b, sq, skv, h, kv, hd, causal, q_offset) \
-        / BF16_TC_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def scan_bound(b, s, di, n, elem):
-    """x, dt, B, C, A, D read and y, h_final written once over HBM; or the
-    exps (one per (b, t, d, n)) over the SFU rate, or the 6 float32 ops per
-    (b, t, d, n) and 3 per (b, t, d) over the float32 rate, whichever is
-    longer."""
-    nbytes = elem * (3 * b * s * di + 2 * b * s * n) + 4 * (di * n + di) \
-        + 4 * b * di * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_exp = b * s * di * n / SFU_OPS_PER_S * 1e3
-    t_flop = (6 * b * s * di * n + 3 * b * s * di) / FP32_OPS_PER_S * 1e3
-    t_ops = max(t_exp, t_flop)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def traced(torch, fn):
     """``(wall ms, device-busy ms, [(kernel, ms), ...])`` of one call of
     ``fn`` under ``torch.profiler``: busy is the sum of the CUDA kernels'
@@ -1186,6 +1179,7 @@ def run_serving(dev) -> list:
                                                 selective_scan_cuda)
     from repro_torch.launch.serve import serve
     from repro_torch.models import count_params, init_params
+    from repro_torch.roofline import attn_bound, attn_flops, scan_bound
     from repro_torch.serving import decode_fn, prefill_fn
 
     scan_variant = "4 lanes a channel, ex2.approx, cp.async ring"
@@ -1933,6 +1927,7 @@ def run_moe(dev) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.launch.serve import serve
     from repro_torch.models import active_params, count_params, init_params
+    from repro_torch.roofline import attn_bound, attn_flops
     from repro_torch.serving import decode_fn, prefill_fn
 
     t_phase = time.perf_counter()
@@ -2116,6 +2111,7 @@ def train_flops(cfg, tokens: int, batch: int, seq: int) -> float:
     attention products (:func:`attn_flops` a layer, forward and twice in
     the backward)."""
     from repro_torch.models import count_params
+    from repro_torch.roofline import attn_flops
 
     attn = sum(spec.mixer == "attn" for spec in cfg.layout)
     hd = cfg.resolved_head_dim
@@ -2147,6 +2143,7 @@ def run_train(dev) -> dict:
     from repro_torch.launch import train as launch_train
     from repro_torch.models import count_params, init_params
     from repro_torch.models.transformer import remat_passes
+    from repro_torch.roofline import attn_flops
     from repro_torch.runtime import ElasticConfig, ElasticSpotTrainer
     from repro_torch.train.loop import make_train_step
 
@@ -2525,6 +2522,384 @@ def run_train(dev) -> dict:
                                 "sdpa_fwd_bwd_ms": sfb_ms},
             "mamba_scan": {"max_rel_err_grad": s_err, "fwd_ms": sfwd_ms,
                            "bwd_ms": sbwd_ms}}
+
+
+def event_ms(torch, fn, reps: int) -> float:
+    """Warm median of ``reps`` calls of ``fn``, each between a pair of CUDA
+    events (the device timeline of one call, host gaps inside it included),
+    after a warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return median(times)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_cost(dev) -> dict:
+    """Phase 15 on ``dev``: the cost model against the card (15a), the
+    sharded step factories on a 1-rank mesh (15b), ServeSim's roofline mode
+    (15c) and the dry-run (15d); returns each kernel's launches on the
+    sharded and roofline-serving paths."""
+    import dataclasses
+    import resource
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import optim, roofline, sharding
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import generate_catalog
+    from repro_torch.data.pipeline import DataConfig, batch_pspecs, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import init_params, transformer
+    from repro_torch.serve_sim import (build_serve_scenario, clear_caches,
+                                       run_serving)
+    from repro_torch.serve_sim import perf_model as pm
+    from repro_torch.serving import (decode_fn, make_sharded_decode,
+                                     make_sharded_prefill, prefill_fn)
+    from repro_torch.train.loop import (make_sharded_train_step,
+                                        make_train_step)
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device=dev)
+    meta = torch.device("meta")
+    launches = collections.Counter()
+
+    def abstract(*shape, dtype=torch.int64):
+        return torch.empty(shape, dtype=dtype, device=meta)
+
+    def terms(c, n=1):
+        rl = roofline.roofline_of(c, n)
+        return (rl, f"FLOPs {c.flops:.6e} bytes {c.bytes:.6e} wire "
+                    f"{c.wire_bytes:.6e}: compute {rl.compute_s * 1e3:.6f} ms"
+                    f" memory {rl.memory_s * 1e3:.6f} ms, step_s "
+                    f"{rl.step_s * 1e3:.6f} ms ({rl.bound})")
+
+    # -- 15a: the cost model against the card ------------------------------
+    cfg = get_config("internlm2-1.8b")
+    B, S, new = 8, 1024, 32
+    max_len = S + new                                   # a 1056-long cache
+    params = init_params(cfg, gen.manual_seed(0), dev)  # phase 9's weights
+    prompt = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S))).to(dev)}
+    aparams = transformer.abstract_params(cfg)
+    t0 = time.perf_counter()
+    c_pre = roofline.analyze_step(prefill_fn, aparams, {"tokens": abstract(
+        B, S)}, cfg=cfg, max_len=max_len)
+    c_dec = roofline.analyze_step(
+        decode_fn, aparams, transformer.abstract_cache(cfg, B, max_len),
+        {"tokens": abstract(B, 1)}, S, cfg=cfg)
+    count_s = time.perf_counter() - t0
+    _, caches = prefill_fn(params, prompt, cfg=cfg, max_len=max_len)
+    nxt = {"tokens": prompt["tokens"][:, :1]}
+    measured = {
+        "prefill": event_ms(torch, lambda: prefill_fn(
+            params, prompt, cfg=cfg, max_len=max_len), 5),
+        "decode": event_ms(torch, lambda: decode_fn(
+            params, caches, nxt, S, cfg=cfg), 10)}
+    shares = {}
+    for what, c in (("prefill", c_pre), ("decode", c_dec)):
+        rl, text = terms(c)
+        shares[what] = rl.step_s * 1e3 / measured[what]
+        check(c.flops > 0 and c.bytes > 0 and c.wire_bytes == 0,
+              f"phase15a {what}: counted {c}")
+        print(f"phase15a {what} internlm2-1.8b ({card}): full width and "
+              f"depth, {cfg.dtype} compute, B {B} "
+              + (f"x S {S}" if what == "prefill" else f"against a {max_len}"
+                 "-long cache")
+              + f": counted {text}; kernel ops {c.by_kernel}; measured warm "
+              f"median {measured[what]:.4f} ms (CUDA events a call); share "
+              f"step_s / measured {shares[what]:.4f}")
+    print(f"phase15a counting both steps on meta took {count_s:.2f} s")
+
+    qa = abstract(8, 1024, 16, 128, dtype=torch.bfloat16)
+    ka = abstract(8, 1024, 8, 128, dtype=torch.bfloat16)
+    c_attn = roofline.analyze_step(ops.flash_attention, qa, ka, ka)
+    a_ms = roofline.roofline_of(c_attn).step_s * 1e3
+    want_a = roofline.attn_bound(8, 1024, 1024, 16, 8, 128, 2)[0]
+    check(c_attn.by_kernel == {"flash_attention": roofline.attn_cost(
+        8, 1024, 1024, 16, 8, 128, 2)} and a_ms == want_a
+        and round(a_ms, 6) == 0.034776,
+        f"phase15a flash_attention op cost {c_attn} ({a_ms} ms)")
+    xa = abstract(4, 1024, 8192, dtype=torch.bfloat16)
+    bca = abstract(4, 1024, 16, dtype=torch.bfloat16)
+    c_scan = roofline.analyze_step(
+        ops.selective_scan, xa, xa, abstract(8192, 16, dtype=torch.float32),
+        bca, bca, abstract(8192, dtype=torch.float32))
+    s_ms = roofline.roofline_of(c_scan).step_s * 1e3
+    check(s_ms == roofline.scan_bound(4, 1024, 8192, 16, 2)[0]
+          and round(s_ms, 6) == 0.128384 and set(c_scan.by_kernel) ==
+          {"selective_scan"}, f"phase15a selective_scan op cost {c_scan}")
+    print(f"phase15a kernel ops counted as one op each: "
+          f"repro_torch::flash_attention at the internlm2 prefill (B 8, S "
+          f"1024, H 16, KV 8, hd 128, bf16) {c_attn.by_kernel} -> "
+          f"{a_ms:.6f} ms = attn_bound; repro_torch::selective_scan at the "
+          f"falcon-mamba-7b prefill (B 4, S 1024, di 8192, N 16, bf16) "
+          f"{c_scan.by_kernel} -> {s_ms:.6f} ms = scan_bound")
+
+    big = get_config("qwen2.5-14b")
+    shape = SHAPES["decode_32k"]
+    torch.cuda.synchronize()
+    on_card = torch.cuda.memory_allocated(dev)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t0 = time.perf_counter()
+    bp = transformer.abstract_params(big)
+    bc = transformer.abstract_cache(big, shape.global_batch, shape.seq_len)
+    size = sum(p.numel() * p.element_size() for p in bp.parameters()) + sum(
+        t.numel() * t.element_size() for c in bc for t in c.values())
+    c_big = roofline.analyze_step(
+        decode_fn, bp, bc, {"tokens": abstract(shape.global_batch, 1)},
+        shape.seq_len - 1, cfg=big)
+    grown = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - rss
+    check(torch.cuda.memory_allocated(dev) == on_card and grown < 500_000,
+          f"phase15a qwen2.5-14b count allocated: card "
+          f"{torch.cuda.memory_allocated(dev) - on_card} B, host {grown} kB")
+    print(f"phase15a qwen2.5-14b decode_32k at full width on one device "
+          f"(B {shape.global_batch} against a {shape.seq_len}-long cache; "
+          f"{size / 1e9:.1f} GB of parameters and cache, on meta): counted "
+          f"{terms(c_big)[1]} in {time.perf_counter() - t0:.2f} s; device "
+          f"memory unchanged, host peak grew {grown} kB")
+    del caches
+
+    # -- 15b: the sharded step factories on a 1-rank mesh -------------------
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh()
+        rules = dataclasses.replace(sharding.single_pod_rules(fsdp=True),
+                                    attn_mode="auto", ep_shard_map=True)
+        steps = 8
+
+        def greedy_run(pre, dec):
+            """``(logits of every step, tokens, prefill ms, decode ms a
+            step)`` of a prefill and ``steps`` greedy decode steps."""
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = pre(params, prompt)
+            lg = logits.full_tensor() if hasattr(logits, "full_tensor") \
+                else logits
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            outs, toks = [lg], [torch.argmax(lg[:, -1:], dim=-1)]
+            for i in range(steps):
+                logits, cache = dec(params, cache, {"tokens": toks[-1]},
+                                    S + i)
+                lg = logits.full_tensor() if hasattr(logits, "full_tensor") \
+                    else logits
+                outs.append(lg)
+                toks.append(torch.argmax(lg[:, -1:], dim=-1))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            return (outs, torch.cat(toks, dim=1), (t2 - t1) * 1e3,
+                    (t3 - t2) * 1e3 / steps)
+
+        walls = {"unsharded": [], "sharded": []}
+        runs = {}
+        for who in ("unsharded", "unsharded", "sharded", "sharded"):
+            if who == "unsharded":
+                pre = lambda p, b: prefill_fn(p, b, cfg=cfg,     # noqa: E731
+                                              max_len=S + steps)
+                dec = lambda p, c, t, pos: decode_fn(            # noqa: E731
+                    p, c, t, pos, cfg=cfg)
+            else:
+                with sharding.mesh_context(mesh, rules):
+                    pre = make_sharded_prefill(
+                        cfg, rules, batch_pspecs(cfg, dataclasses.replace(
+                            SHAPES["prefill_32k"], global_batch=B,
+                            seq_len=S), rules), max_len=S + steps)
+                    dec = make_sharded_decode(
+                        cfg, rules, batch_pspecs(cfg, SHAPES["decode_32k"],
+                                                 rules))
+            flash_attention_cuda.launches = 0
+            outs, toks, p_ms, d_ms = greedy_run(pre, dec)
+            n_flash = flash_attention_cuda.launches
+            check(n_flash == cfg.n_layers, f"phase15b {who}: "
+                  f"{n_flash} flash_attention launches, expected "
+                  f"{cfg.n_layers}")
+            if who == "sharded":
+                launches["flash_attention"] += n_flash
+                check(all(type(p).__name__ == "DTensor"
+                          for p in params.parameters()),
+                      "phase15b: the sharded run did not lay the "
+                      "parameters out as DTensors")
+            runs[who] = (outs, toks)
+            walls[who].append((p_ms, d_ms))
+        (o_u, t_u), (o_s, t_s) = runs["unsharded"], runs["sharded"]
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(o_u, o_s))
+        check(torch.equal(t_u, t_s), f"phase15b: greedy tokens differ "
+              f"{t_u.tolist()} vs {t_s.tolist()}")
+        check(all(bool(torch.isfinite(o).all()) for o in o_s),
+              "phase15b: a sharded logit is not finite")
+        print(f"phase15b serve internlm2-1.8b ({card}) through "
+              f"make_sharded_prefill / make_sharded_decode on a "
+              f"{tuple(mesh.shape)} mesh ({rules}): batch {B}, prompt {S}, "
+              f"{steps} new tokens; tokens equal to the unsharded path's; "
+              f"logits max |diff| {diff:.3e}; flash_attention launches "
+              f"{cfg.n_layers} a prefill (one a layer); walls (prefill ms, "
+              f"decode ms a step) in order unsharded, unsharded, sharded, "
+              f"sharded: {walls['unsharded']} {walls['sharded']}; sharded "
+              f"/ unsharded (warm) prefill "
+              f"{walls['sharded'][1][0] / walls['unsharded'][1][0]:.3f} "
+              f"decode {walls['sharded'][1][1] / walls['unsharded'][1][1]:.3f}"
+              f" (phase 9 serves the same model at batch 8 unsharded)")
+        del params, runs, o_u, o_s, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        full = cfg
+        cut = dataclasses.replace(full, dtype="float32", n_layers=2,
+                                  layout=full.layout[:2])
+        ocfg = optim.OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+        batch = make_batch(cut, DataConfig(seed=0), step=0, batch=2,
+                           seq=1024)
+        got = {}
+        for who in ("unsharded", "sharded"):
+            p2 = init_params(cut, gen.manual_seed(40), dev)
+            opt = optim.init_opt_state(p2)
+            if who == "unsharded":
+                step = make_train_step(cut, ocfg)
+            else:
+                with sharding.mesh_context(mesh, rules):
+                    step = make_sharded_train_step(
+                        cut, ocfg, rules, batch_pspecs(cut, dataclasses.replace(
+                            SHAPES["train_4k"], global_batch=2, seq_len=1024),
+                            rules))
+            flash_attention_cuda.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p2, opt, m = step(p2, opt, batch)
+            vals = tuple(float(m[k].full_tensor() if hasattr(
+                m[k], "full_tensor") else m[k]) for k in ("loss",
+                                                          "grad_norm"))
+            got[who] = (vals, (time.perf_counter() - t1) * 1e3,
+                        flash_attention_cuda.launches)
+            del p2, opt, step
+        want = cut.n_layers * transformer.remat_passes(cut)
+        launches["flash_attention"] += got["sharded"][2]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["sharded"][0],
+                                                       got["unsharded"][0]))
+        check(rel <= 1e-4 and got["sharded"][2] == want,
+              f"phase15b train: {got} (bar 1e-4, launches {want})")
+        print(f"phase15b make_sharded_train_step ({card}): internlm2-1.8b "
+              f"2-layer float32 cut at full width, B 2 x S 1024, one step "
+              f"against make_train_step's: (loss, grad norm) "
+              f"{got['sharded'][0]} vs {got['unsharded'][0]}, largest "
+              f"relative diff {rel:.3e} (bar 1e-4); step wall ms sharded "
+              f"{got['sharded'][1]:.1f} unsharded {got['unsharded'][1]:.1f} "
+              f"(first steps, both cold); flash_attention launches "
+              f"{got['sharded'][2]} (2 layers x forward + recompute)")
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase15b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 15c: ServeSim's roofline mode -------------------------------------
+    t0 = time.perf_counter()
+    offs = generate_catalog(seed=3, max_offerings=60)
+    clear_caches()
+    ana = pm.serving_table(pm.ServingProfile(mode="analytic"), offs)
+    roof = pm.serving_table(pm.ServingProfile(mode="roofline"), offs)
+    slo_r = pm.default_slo_ms(pm.ServingProfile(mode="roofline"))
+    slo_a = pm.default_slo_ms(pm.ServingProfile(mode="analytic"))
+    mask_r, mask_a = roof.slo_mask(slo_r), ana.slo_mask(slo_a)
+    check(roof.mode == "roofline" and roof.token_s_ref != ana.token_s_ref
+          and np.array_equal(np.argsort(-roof.qps_per_pod),
+                             np.argsort(-ana.qps_per_pod))
+          and np.array_equal(mask_r, mask_a)
+          and np.allclose(roof.request_ms / roof.token_s_ref,
+                          ana.request_ms / ana.token_s_ref, rtol=1e-7,
+                          atol=0.0),
+          "phase15c: the roofline table disagrees with the analytic one")
+    print(f"phase15c serving_table on generate_catalog(seed=3, "
+          f"max_offerings=60): roofline token_s_ref {roof.token_s_ref!r} s, "
+          f"analytic {ana.token_s_ref!r} s (efficiency factor "
+          f"{roof.token_s_ref / ana.token_s_ref:.4f}); ranking, SLO mask "
+          f"({int(mask_r.sum()) if mask_r is not None else 0} of "
+          f"{len(offs)} masked) and request_ms / token_s_ref equal")
+    drv = SimDriver(torch, "phase15")
+    saved_mode = os.environ.get("KUBEPACS_SERVE_PERF")
+    os.environ["KUBEPACS_SERVE_PERF"] = "roofline"
+    reports = []
+    try:
+        for spec in ("numpy", "torch"):
+            clear_caches()
+            ss = build_serve_scenario("diurnal", policy="serving_slo",
+                                      duration_hours=24.0)
+            check(ss.profile.resolved_mode() == "roofline",
+                  f"phase15c: profile {ss.profile}")
+            report, wall, got, k_ms = drv.drive(
+                spec, lambda: run_serving(ss, clock=lambda: 0.0),
+                "serve roofline")
+            reports.append(json.dumps(report.as_dict(), sort_keys=True))
+            if spec == "torch":
+                check(got[0] > 0, f"phase15c: cover_dp not launched {got}")
+                launches["cover_dp"] += got[0]
+            print(f"phase15c serve diurnal serving_slo, roofline profile, "
+                  f"{spec}: wall {wall:.3f} s; launches cover_dp {got[0]} "
+                  f"fused_rows {got[1]}; kernels {k_ms:.3f} ms")
+    finally:
+        if saved_mode is None:
+            del os.environ["KUBEPACS_SERVE_PERF"]
+        else:
+            os.environ["KUBEPACS_SERVE_PERF"] = saved_mode
+        clear_caches()
+    check(reports[0] == reports[1],
+          "phase15c: the torch ServeReport differs from numpy's")
+    print(f"phase15c reports byte-equal ({len(reports[0])} bytes); took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 15d: the dry-run ---------------------------------------------------
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="phase15-", dir=os.path.join(ROOT, "build"))
+    try:
+        out_file = os.path.join(d, "dryrun.jsonl")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "internvl2-1b", "--shape", "decode_32k", "--multi-pod", "--out",
+             out_file], env=env, capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f"phase15d: dry-run exit "
+              f"{res.returncode}: {res.stderr[-2000:]}")
+        with open(out_file) as f:
+            rec = json.loads(f.readlines()[-1])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(rec["status"] == "ok" and rec["n_devices"] == 512
+          and rec["flops_per_device"] > 0, f"phase15d: record {rec}")
+    print("phase15d python -m repro_torch.launch.dryrun --arch internvl2-1b "
+          "--shape decode_32k --multi-pod (512 fake ranks, counted on meta): "
+          + json.dumps({k: rec[k] for k in (
+              "status", "n_devices", "flops_per_device", "bytes_per_device",
+              "wire_bytes_per_device", "collectives", "n_collectives",
+              "compute_s", "memory_s", "collective_s", "bound", "step_s",
+              "arg_bytes_per_device", "model_flops_ratio", "count_s")})
+          + f" ({time.perf_counter() - t0:.1f} s with the subprocess)")
+    print(f"phase15 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": dict(launches),
+            "shares": shares, "measured_ms": measured}
 
 
 if __name__ == "__main__":

@@ -9,8 +9,7 @@ copy/induction spans so small models show real loss decrease in examples.
 The reference's NumPy code, copied: its streams are bit-identical to
 ``src/repro/data/pipeline.py``'s.  ``batch_specs`` gives the shape and
 dtype of every model input without allocating (the reference's
-``ShapeDtypeStruct`` stand-ins); the sharded ``batch_pspecs`` comes with
-the port of ``sharding.py``.
+``ShapeDtypeStruct`` stand-ins), ``batch_pspecs`` their layouts on a mesh.
 """
 
 from __future__ import annotations
@@ -93,6 +92,19 @@ def batch_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, ShapeDtype]:
                     np.dtype(np.float32))}
     return {"tokens": ShapeDtype((b, s), i32),
             "targets": ShapeDtype((b, s), i32)}
+
+
+def batch_pspecs(cfg: ModelConfig, shape: InputShape, rules) -> Dict[str, Any]:
+    """PartitionSpecs for the batch dict (batch dim over data axes; the
+    long-context decode keeps batch=1 replicated)."""
+    from ..sharding import P
+    long_ctx = shape.name == "long_500k"
+    b_ax = None if long_ctx else (rules.batch if rules.batch else None)
+    specs = batch_specs(cfg, shape)
+    out = {}
+    for k, v in specs.items():
+        out[k] = P(b_ax, *([None] * (len(v.shape) - 1)))
+    return out
 
 
 class Prefetcher:

@@ -9,9 +9,16 @@ TMA loads), float32 inputs as IEEE FMAs.  It returns ``(o, lse)`` as
 :func:`ref.flash_fwd_chunked` does, with ``lse`` laid out ``(B,Sq,KV,G)``,
 and takes ragged ``Sq`` and ``Skv``.
 
-On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
-it runs the plain version :func:`ref.flash_fwd_chunked`, which is also what
-the kernel is held to on the card.  Nothing falls back to it.
+The launch is the custom op ``repro_torch::flash_attention`` (its CUDA
+implementation; its fake implementation gives the output shapes), so that
+the cost model (``roofline.analyze_step``) meets the kernel as one op on
+abstract ``meta`` tensors, with the cost of ``roofline.attn_cost``.
+
+On CUDA tensors the wrapper launches the kernel or raises; on ``meta``
+tensors it dispatches the op's fake implementation (no launch, no count);
+on CPU tensors it runs the plain version :func:`ref.flash_fwd_chunked`,
+which is also what the kernel is held to on the card.  Nothing falls back
+to it.
 """
 
 from __future__ import annotations
@@ -74,28 +81,22 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          "16-byte boundary")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, q_offset: int = 0,
-                         kv_len: Optional[int] = None,
-                         q_chunk: int = 512, kv_chunk: int = 512,
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)`` of q ``(B,Sq,H,hd)`` over k, v ``(B,Skv,KV,hd)``.
-
-    CUDA: one launch, counted in ``flash_attention_cuda.launches``, of
-    inputs that :func:`check_inputs` passes.  CPU:
-    :func:`ref.flash_fwd_chunked` with ``q_chunk`` and ``kv_chunk`` (which
-    the kernel does not need)."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return ref.flash_fwd_chunked(q, k, v, causal=causal,
-                                     q_offset=q_offset, kv_len=kv_len,
-                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                        device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, q_offset: int, kv_len: Optional[int]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel, counted in
+    ``flash_attention_cuda.launches``: ``(o, lse)``, ``lse`` laid out
+    ``(B,Sq,KV,G)``."""
     check_inputs(q, k, v)
     dev = check_cuda("flash_attention", (q, k, v), (q.dtype,) * 3)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     kv_lim = skv if kv_len is None else max(0, min(int(kv_len), skv))
     o = torch.empty_like(q)
-    lse = torch.empty((b, sq, h), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, sq, kvh, h // kvh), dtype=torch.float32,
+                      device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().flash_attention_launch(
@@ -106,8 +107,39 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")
     flash_attention_cuda.launches += 1
-    return o, lse.view(b, sq, kvh, h // kvh)
+    return o, lse
 
 
-#: kernel launches since the last reset (the wrapper is the only writer)
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, q_offset, kv_len):
+    check_inputs(q, k, v)
+    b, sq, h, _ = q.shape
+    kvh = k.shape[2]
+    return (torch.empty_like(q),
+            q.new_empty((b, sq, kvh, h // kvh), dtype=torch.float32))
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, q_offset: int = 0,
+                         kv_len: Optional[int] = None,
+                         q_chunk: int = 512, kv_chunk: int = 512,
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` of q ``(B,Sq,H,hd)`` over k, v ``(B,Skv,KV,hd)``.
+
+    CUDA: one launch of the op ``repro_torch::flash_attention``, counted
+    in ``flash_attention_cuda.launches``, of inputs that
+    :func:`check_inputs` passes.  ``meta``: the op's output shapes.  CPU:
+    :func:`ref.flash_fwd_chunked` with ``q_chunk`` and ``kv_chunk`` (which
+    the kernel does not need)."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return ref.flash_fwd_chunked(q, k, v, causal=causal,
+                                     q_offset=q_offset, kv_len=kv_len,
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, bool(causal), int(q_offset),
+        None if kv_len is None else int(kv_len))
+
+
+#: kernel launches since the last reset (the op's CUDA implementation is
+#: the only writer)
 flash_attention_cuda.launches = 0

@@ -8,9 +8,15 @@ chunks of the sequence staged by ``cp.async``; see the source for the
 design), and returns ``(y, h_final)`` — the final state comes out of the
 same pass.  Any ``S`` works.
 
-On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
-it runs the plain version :func:`ref.selective_scan_chunked`.  The kernel
-is held on the card to :func:`ref.selective_scan_ref`.
+The launch is the custom op ``repro_torch::selective_scan`` (its CUDA
+implementation; its fake implementation gives the output shapes), so that
+the cost model (``roofline.analyze_step``) meets the kernel as one op on
+abstract ``meta`` tensors, with the cost of ``roofline.scan_cost``.
+
+On CUDA tensors the wrapper launches the kernel or raises; on ``meta``
+tensors it dispatches the op's fake implementation; on CPU tensors it runs
+the plain version :func:`ref.selective_scan_chunked`.  The kernel is held
+on the card to :func:`ref.selective_scan_ref`.
 """
 
 from __future__ import annotations
@@ -27,32 +33,21 @@ from .flash_attention import DTYPES, check_cuda
 MAX_STATE = 16
 
 
-def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                        Bmat: torch.Tensor, Cmat: torch.Tensor,
-                        D: torch.Tensor, h0: Optional[torch.Tensor] = None,
-                        chunk: int = 256,
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(y, h_final)``: x, dt ``(B,S,di)`` and Bmat, Cmat ``(B,S,N)`` of one
-    dtype (float32 or bfloat16); A ``(di,N)``, D ``(di,)`` and h0
-    ``(B,di,N)`` float32.  CUDA: one launch, counted in
-    ``selective_scan_cuda.launches``; ``N <= 16``.  CPU:
-    :func:`ref.selective_scan_chunked` with ``chunk``."""
-    if x.device.type == "cpu":
-        return ref.selective_scan_chunked(x, dt, A, Bmat, Cmat, D, h0=h0,
-                                          chunk=chunk)
+@torch.library.custom_op("repro_torch::selective_scan", mutates_args=(),
+                        device_types="cuda")
+def _scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor,
+             h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel, counted in
+    ``selective_scan_cuda.launches``: ``(y, h_final)``."""
     if x.dtype not in DTYPES:
         raise TypeError(f"selective_scan: unsupported dtype {x.dtype}")
     tensors = [x, dt, Bmat, Cmat, A, D] + ([h0] if h0 is not None else [])
     dev = check_cuda("selective_scan", tensors,
                      [x.dtype] * 4 + [torch.float32] * 3)
+    _check_shapes(x, dt, A, Bmat, Cmat, D, h0)
     b, s, di = x.shape
     n = A.shape[1]
-    if (dt.shape != x.shape or A.shape != (di, n) or D.shape != (di,)
-            or Bmat.shape != (b, s, n) or Cmat.shape != (b, s, n)
-            or (h0 is not None and h0.shape != (b, di, n))
-            or not 0 < n <= MAX_STATE):
-        raise ValueError(f"selective_scan: shapes x {tuple(x.shape)} A "
-                         f"{tuple(A.shape)} B {tuple(Bmat.shape)} not taken")
     y = torch.empty_like(x)
     h = torch.empty((b, di, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -69,5 +64,43 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
-#: kernel launches since the last reset (the wrapper is the only writer)
+@_scan_op.register_fake
+def _scan_fake(x, dt, A, Bmat, Cmat, D, h0):
+    _check_shapes(x, dt, A, Bmat, Cmat, D, h0)
+    b, _, di = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((b, di, A.shape[1]), dtype=torch.float32))
+
+
+def _check_shapes(x, dt, A, Bmat, Cmat, D, h0) -> None:
+    b, s, di = x.shape
+    n = A.shape[1]
+    if (dt.shape != x.shape or A.shape != (di, n) or D.shape != (di,)
+            or Bmat.shape != (b, s, n) or Cmat.shape != (b, s, n)
+            or (h0 is not None and h0.shape != (b, di, n))
+            or not 0 < n <= MAX_STATE):
+        raise ValueError(f"selective_scan: shapes x {tuple(x.shape)} A "
+                         f"{tuple(A.shape)} B {tuple(Bmat.shape)} not taken")
+
+
+def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        Bmat: torch.Tensor, Cmat: torch.Tensor,
+                        D: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                        chunk: int = 256,
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y, h_final)``: x, dt ``(B,S,di)`` and Bmat, Cmat ``(B,S,N)`` of one
+    dtype (float32 or bfloat16); A ``(di,N)``, D ``(di,)`` and h0
+    ``(B,di,N)`` float32.  CUDA: one launch of the op
+    ``repro_torch::selective_scan``, counted in
+    ``selective_scan_cuda.launches``; ``N <= 16``.  ``meta``: the op's
+    output shapes.  CPU: :func:`ref.selective_scan_chunked` with
+    ``chunk``."""
+    if x.device.type == "cpu":
+        return ref.selective_scan_chunked(x, dt, A, Bmat, Cmat, D, h0=h0,
+                                          chunk=chunk)
+    return torch.ops.repro_torch.selective_scan(x, dt, A, Bmat, Cmat, D, h0)
+
+
+#: kernel launches since the last reset (the op's CUDA implementation is
+#: the only writer)
 selective_scan_cuda.launches = 0

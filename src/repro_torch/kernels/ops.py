@@ -21,8 +21,20 @@ counterparts of the reference's ``_diff_flash``:
   chunk's intermediates are live at a time.
 
 Neither backward is a kernel: in the reference both are plain ``jnp``
-(``flash_bwd_chunked``, and autodiff of the chunked scan).  There is one
-device, so the reference's sharding hooks are not carried over.
+(``flash_bwd_chunked``, and autodiff of the chunked scan).
+
+On an active mesh (``sharding.mesh_context``) the reference's sharding
+hooks apply: self-attention's q, k, v are first laid out for the mesh's
+attention mode (:func:`_constrain_qkv`: "ulysses" shards the batch over
+every mesh axis, "cp" the q sequence over the model axis), its output
+laid back (:func:`_constrain_out`), and the chunk of q is clamped to one
+sequence shard under "cp".  A DTensor cannot hand its data to a kernel, so
+on DTensors each function runs through ``local_map`` on a layout where it
+is device-local (:func:`_local_layout`): a mesh dim that splits the batch,
+or the heads (attention; both head counts divisible) / the channels (the
+scan), keeps that split, and any other split is gathered first — so no
+sharding is dropped, and the kernel (or plain version) sees one device's
+tensors.
 """
 
 from __future__ import annotations
@@ -30,16 +42,22 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from .. import sharding
 from . import ref
 from .flash_attention import flash_attention_cuda
 from .mamba_scan import selective_scan_cuda
 
 
 def _resolve(impl: str, t: torch.Tensor, what: str) -> str:
+    """``"auto"``: the kernel for CUDA tensors and for ``meta`` tensors (so
+    that the cost model counts the op the card runs), the chunked version
+    for CPU tensors."""
     if impl == "auto":
-        return "cuda" if t.device.type == "cuda" else "chunked"
-    if impl == "cuda" and t.device.type != "cuda":
+        return "cuda" if t.device.type in ("cuda", "meta") else "chunked"
+    if impl == "cuda" and t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{what}: impl='cuda' needs CUDA tensors, got "
                          f"{t.device}")
     return impl
@@ -73,10 +91,83 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def _local_layout(x, split_dims, each):
+    """Placements, on ``x``'s mesh, under which a function of ``x`` and its
+    companions is device-local: per mesh dim, ``each[d]`` (one placement
+    per argument) where ``x`` is ``Shard(d)`` for ``d`` in ``split_dims``
+    and every argument's split divides, else ``Replicate()`` for all."""
+    mesh = x.device_mesh
+    n_args = len(next(iter(each.values()))[0])
+    layout = [[] for _ in range(n_args)]
+    for m, p in enumerate(x.placements):
+        choice = None
+        if isinstance(p, Shard) and p.dim in split_dims:
+            pl, sizes = each[p.dim]
+            if all(s % mesh.size(m) == 0 for s in sizes):
+                choice = pl
+        for i in range(n_args):
+            layout[i].append(choice[i] if choice else Replicate())
+    return layout
+
+
+def _constrain_qkv(q, k, v):
+    """Apply the active attention parallelism mode (sharding.flash_mode)."""
+    mode = sharding.flash_mode(q.shape[0], q.shape[1])
+    if mode == "ulysses":
+        spec = sharding.ulysses_spec(4)
+        return (sharding.constrain(q, spec), sharding.constrain(k, spec),
+                sharding.constrain(v, spec), mode)
+    if mode == "cp":
+        return (sharding.constrain(q, sharding.cp_q_spec(4)),
+                sharding.constrain(k, sharding.cp_kv_spec(4)),
+                sharding.constrain(v, sharding.cp_kv_spec(4)), mode)
+    return q, k, v, mode
+
+
+def _constrain_out(o, mode):
+    if mode == "ulysses":
+        return sharding.constrain(o, sharding.ulysses_spec(4))
+    if mode == "cp":
+        return sharding.constrain(o, sharding.cp_q_spec(4))
+    return o
+
+
+def _cp_chunk(q, q_chunk: int) -> int:
+    """Context parallelism needs q chunks no larger than one seq shard."""
+    if sharding.flash_mode(q.shape[0], q.shape[1]) == "cp":
+        ctx = sharding.active()
+        msize = sharding.mesh_sizes(ctx[0])[ctx[1].model]
+        return min(q_chunk, max(q.shape[1] // msize, 1))
+    return q_chunk
+
+
+def _attention_local_map(q, k, v, **kw):
+    """:func:`flash_attention` of DTensors, device-local through
+    ``local_map`` (batch or head splits kept, any other gathered)."""
+    b, h, kvh = q.shape[0], q.shape[2], k.shape[2]
+    q_pl, k_pl, v_pl = _local_layout(q, (0, 2), {
+        0: ((Shard(0),) * 3, (b,)),
+        2: ((Shard(2),) * 3, (h, kvh))})
+    fn = local_map(lambda a, c, d: flash_attention(a, c, d, **kw),
+                   out_placements=q_pl, in_placements=(q_pl, k_pl, v_pl),
+                   redistribute_inputs=True)
+    return fn(q, k, v)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None, impl: str = "auto",
                     q_chunk: int = 512, kv_chunk: int = 512,
                     causal_skip: bool = False) -> torch.Tensor:
+    self_attn = kv_len is None and q_offset == 0
+    if self_attn:
+        q, k, v, mode = _constrain_qkv(q, k, v)
+        q_chunk = _cp_chunk(q, q_chunk)
+    if isinstance(q, DTensor):
+        o = _attention_local_map(
+            q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+            impl=impl, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            causal_skip=causal_skip)
+        return _constrain_out(o, mode) if self_attn else o
     impl = _resolve(impl, q, "flash_attention")
     if kv_len is None and q_offset == 0 and impl in ("cuda", "chunked"):
         return FlashAttention.apply(q, k, v, causal, impl == "cuda",
@@ -170,9 +261,36 @@ def scan_backward(x, dt, A, Bmat, Cmat, D, h0, dy, dh, chunk: int):
     return cat["x"], cat["dt"], dA, cat["B"], cat["C"], dD, dh0
 
 
+def _scan_local_map(x, dt, A, Bmat, Cmat, D, h0, **kw):
+    """:func:`selective_scan` of DTensors, device-local through
+    ``local_map`` (batch or channel splits kept, any other gathered)."""
+    b, di = x.shape[0], x.shape[2]
+    r = Replicate()
+    pls = _local_layout(x, (0, 2), {
+        0: ((Shard(0), Shard(0), r, Shard(0), Shard(0), r, Shard(0)), (b,)),
+        2: ((Shard(2), Shard(2), Shard(0), r, r, Shard(0), Shard(1)),
+            (di,))})
+    args = [x, dt, A, Bmat, Cmat, D, h0]
+    keep = [i for i, a in enumerate(args) if a is not None]
+
+    def local(*ts):
+        full = [None] * len(args)
+        for i, t in zip(keep, ts):
+            full[i] = t
+        return selective_scan(*full[:6], h0=full[6], **kw)
+
+    fn = local_map(local, out_placements=(pls[0], pls[6]),
+                   in_placements=tuple(pls[i] for i in keep),
+                   redistribute_inputs=True)
+    return fn(*[args[i] for i in keep])
+
+
 def selective_scan(x, dt, A, Bmat, Cmat, D, *, h0=None, impl: str = "auto",
                    chunk: int = 256):
     """Returns ``(y, h_final)``; the kernel emits ``h_final`` itself."""
+    if isinstance(x, DTensor):
+        return _scan_local_map(x, dt, A, Bmat, Cmat, D, h0, impl=impl,
+                               chunk=chunk)
     impl = _resolve(impl, x, "selective_scan")
     if impl in ("cuda", "chunked"):
         return SelectiveScan.apply(x, dt, A, Bmat, Cmat, D, h0,

@@ -1,10 +1,13 @@
 """The model zoo on PyTorch: attention / Mamba / MoE decoder stacks, for
 serving and training."""
 
-from .transformer import (Transformer, active_params, count_params,
+from .transformer import (Transformer, abstract_cache, abstract_params,
+                          active_params, cache_pspecs, count_params,
                           decode_step, forward, init_cache, init_params,
-                          loss_fn, model_schema, prefill, reference_ranks)
+                          loss_fn, model_schema, param_pspecs, prefill,
+                          reference_ranks)
 
-__all__ = ["Transformer", "active_params", "count_params", "decode_step",
+__all__ = ["Transformer", "abstract_cache", "abstract_params",
+           "active_params", "cache_pspecs", "count_params", "decode_step",
            "forward", "init_cache", "init_params", "loss_fn", "model_schema",
-           "prefill", "reference_ranks"]
+           "param_pspecs", "prefill", "reference_ranks"]

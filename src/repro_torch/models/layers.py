@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import sharding
 from ..configs.base import ModelConfig
 from ..kernels import ops
 
@@ -136,13 +137,13 @@ class Attention(Params):
         h, kv = cfg.n_heads, cfg.n_kv_heads
         dt = x.dtype
 
-        q = (x @ self.wq.to(dt)).reshape(b, s, h, hd)
-        k = (x @ self.wk.to(dt)).reshape(b, s, kv, hd)
-        v = (x @ self.wv.to(dt)).reshape(b, s, kv, hd)
+        q = sharding.reshape(x @ self.wq.to(dt), b, s, h, hd)
+        k = sharding.reshape(x @ self.wk.to(dt), b, s, kv, hd)
+        v = sharding.reshape(x @ self.wv.to(dt), b, s, kv, hd)
         if cfg.qkv_bias:
-            q = q + self.bq.to(dt).reshape(h, hd)
-            k = k + self.bk.to(dt).reshape(kv, hd)
-            v = v + self.bv.to(dt).reshape(kv, hd)
+            q = q + sharding.reshape(self.bq.to(dt), h, hd)
+            k = k + sharding.reshape(self.bk.to(dt), kv, hd)
+            v = v + sharding.reshape(self.bv.to(dt), kv, hd)
 
         offset = 0 if pos is None else int(pos)
         positions = offset + torch.arange(s, device=x.device)
@@ -167,7 +168,7 @@ class Attention(Params):
             if make_cache:
                 new_cache = {"k": k, "v": v}
 
-        out = out.reshape(b, s, h * hd)
+        out = sharding.reshape(out, b, s, h * hd)
         return out @ self.wo.to(dt), new_cache
 
 

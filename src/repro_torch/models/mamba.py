@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import sharding
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from .layers import ParamDef, Params
@@ -77,6 +78,7 @@ class Mamba(Params):
         dt_ = x.dtype
         kc = cfg.ssm_conv
         xh, z = self._split_xz(x)
+        xh = sharding.constrain(xh, sharding.mamba_conv_state_spec())
         pad = torch.zeros((b, kc - 1, cfg.d_inner), dtype=dt_,
                           device=x.device)
         xp = torch.cat([pad, xh], dim=1)                       # (B,S+kc-1,di)

@@ -16,22 +16,30 @@ period ``p``).  Three modes share one code path, as in the reference:
 Parameters are a :class:`Transformer` module (built by :func:`init_params`
 or ``convert.params_from_reference``), its leaves created frozen
 (``requires_grad=False``): the train step turns them on.  Caches are a
-list with one dict per layer.  :func:`loss_fn` is the reference's causal
+list with one dict per layer.  Under an active mesh
+(``sharding.mesh_context``) the same code runs on DTensors:
+:func:`param_pspecs` / :func:`cache_pspecs` give the layouts,
+:func:`distribute_params` lays the parameters out, and the reference's
+constraints (embedding, block output, logits) redistribute activations;
+:func:`abstract_params` / :func:`abstract_cache` are the ``meta`` stand-ins
+the cost model counts.  :func:`loss_fn` is the reference's causal
 LM loss; :func:`reference_ranks` gives each leaf the rank it has in the
 reference's stacked tree, which AdamW's decay rule reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from .. import resolve_device
+from .. import resolve_device, sharding
 from ..configs.base import LayerSpec, ModelConfig
 from . import layers, mamba, moe
 from .layers import ParamDef
@@ -204,6 +212,39 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
+def abstract_params(cfg: ModelConfig) -> Transformer:
+    """A :class:`Transformer` on ``meta``: every leaf's shape and dtype,
+    nothing allocated (the reference's ``ShapeDtypeStruct`` tree)."""
+    return Transformer(cfg, torch.device("meta"))
+
+
+def param_pspecs(cfg: ModelConfig, rules: sharding.MeshRules
+                 ) -> Dict[str, sharding.P]:
+    """The spec of every parameter, by dotted path.  The reference stacks
+    its body layers over periods, so its stacked leaves' specs start with
+    the ``"layers"`` entry (``None``); the port's unrolled leaves have the
+    same specs without it."""
+    return {path: sharding.logical_to_pspec(pd.axes, rules,
+                                            cfg.expert_parallel)
+            for path, pd in flat_schema(model_schema(cfg))}
+
+
+def distribute_params(params: Transformer, pspecs: Dict[str, sharding.P],
+                      mesh) -> Transformer:
+    """Turn each parameter of ``params`` into a DTensor on ``mesh`` under
+    its spec, in place (a parameter that is one already is redistributed
+    when its placements differ); returns ``params``."""
+    for path, spec in pspecs.items():
+        mod_path, _, name = path.rpartition(".")
+        mod = params.get_submodule(mod_path)
+        p = getattr(mod, name)
+        d = sharding.distribute(p.detach(), spec, mesh)
+        if d.placements != getattr(p, "placements", None):
+            mod.register_parameter(name, nn.Parameter(
+                d, requires_grad=p.requires_grad))
+    return params
+
+
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
@@ -223,6 +264,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
              for name, pd in _layer_cache_def(cfg, spec, batch,
                                               max_len).items()}
             for spec in cfg.layout]
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> Caches:
+    """:func:`init_cache` on ``meta``."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
+def cache_pspecs(cfg: ModelConfig, rules: sharding.MeshRules,
+                 long_context: bool = False) -> List[Dict[str, sharding.P]]:
+    """Specs matching :func:`init_cache`'s structure (one dict a layer);
+    the reference's unstacked."""
+    out = []
+    for spec in cfg.layout:
+        if spec.mixer == "attn":                   # (B, T, KV, hd)
+            kv = _kv_spec(cfg, rules, long_context)
+            out.append({"k": kv, "v": kv})
+        else:
+            b = _batch(rules, long_context)
+            out.append({"h": sharding.P(b, rules.model, None),  # (B,di,N)
+                        "conv": sharding.P(b, None, rules.model)})
+    return out
+
+
+def _batch(rules: sharding.MeshRules, long_context: bool):
+    if long_context:
+        return None          # batch=1: replicate batch, shard sequence
+    return rules.batch if rules.batch else None
+
+
+def _kv_spec(cfg: ModelConfig, rules: sharding.MeshRules,
+             long_context: bool) -> sharding.P:
+    msize = 1
+    ctx = sharding.active()
+    if ctx is not None and rules.model is not None:
+        msize = sharding.mesh_sizes(ctx[0])[rules.model]
+    h_ax = d_ax = None
+    if msize > 1:
+        if cfg.n_kv_heads % msize == 0:
+            h_ax = rules.model
+        elif cfg.resolved_head_dim % msize == 0:
+            d_ax = rules.model
+    if long_context and rules.seq:
+        return sharding.P(None, rules.seq, h_ax, d_ax)
+    return sharding.P(_batch(rules, long_context), None, h_ax, d_ax)
 
 
 def _pad_caches(caches: Caches, cfg: ModelConfig, max_len: int) -> Caches:
@@ -251,15 +336,61 @@ def _embed_inputs(params: Transformer, cfg: ModelConfig,
     emb = params.embed.tok
     if cfg.input_mode == "audio_codes":
         codes = batch["codes"]                         # (B, K, S)
-        x = emb[0][codes[:, 0]]
+        x = _lookup(codes[:, 0], emb[0])
         for k in range(1, cfg.n_codebooks):
-            x = x + emb[k][codes[:, k]]
+            x = x + _lookup(codes[:, k], emb[k])
     elif cfg.input_mode == "vlm" and "vision_embeds" in batch:
-        tok = emb[batch["tokens"]]
+        tok = _lookup(batch["tokens"], emb)
         x = torch.cat([batch["vision_embeds"].to(tok.dtype), tok], dim=1)
     else:
-        x = emb[batch["tokens"]]
-    return x.to(dt)
+        x = _lookup(batch["tokens"], emb)
+    return sharding.constrain(x.to(dt), sharding.act_spec_btd(x.shape[1]))
+
+
+def _vocab_split(t, dim: int):
+    """The mesh dims that split dim ``dim`` of a DTensor ``t`` ([] for a
+    plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return []
+    return [m for m, p in enumerate(t.placements)
+            if isinstance(p, Shard) and p.dim == dim]
+
+
+def _lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, table)``.  On a DTensor table whose vocab (rows)
+    is split over one mesh dim, each device looks up the rows it holds
+    (zeros for the others) and the lookups leave as ``Partial`` sums (one
+    all-reduce), the table's other splits gathered first (FSDP): the
+    vocab-parallel embedding, which also needs no data-dependent check on
+    abstract tensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    split = _vocab_split(table, 0)
+    if not split:
+        return F.embedding(ids, table)
+    mesh = table.device_mesh
+    if len(split) > 1 or table.shape[0] % mesh.size(split[0]):
+        return F.embedding(ids, table.redistribute(
+            mesh, [Replicate()] * mesh.ndim))
+    m = split[0]
+    ids_pl = (list(ids.placements) if isinstance(ids, DTensor)
+              else [Replicate()] * mesh.ndim)
+    i_pl = [Replicate() if i == m else p for i, p in enumerate(ids_pl)]
+    t_pl = [Shard(0) if i == m else Replicate() for i in range(mesh.ndim)]
+    out_pl = [Partial() if i == m else p for i, p in enumerate(i_pl)]
+    v_local = table.shape[0] // mesh.size(m)
+
+    def local(i, tab):
+        j = i - sharding.local_rank(mesh, m) * v_local
+        out = F.embedding(j.clamp(0, v_local - 1), tab)
+        ok = ((j >= 0) & (j < v_local))[..., None]
+        return torch.where(ok, out, torch.zeros_like(out))
+
+    y = local_map(local, out_placements=out_pl, in_placements=(i_pl, t_pl),
+                  redistribute_inputs=True)(ids, table)
+    return y.redistribute(mesh, i_pl)
 
 
 #: matmuls without batch dimensions: the ops whose outputs the ``"dots"``
@@ -289,6 +420,17 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
             context_fn=functools.partial(
                 ckpt.create_selective_checkpoint_contexts, _dots_policy))
     raise ValueError(cfg.remat_policy)
+
+
+def _remat_cfg(cfg: ModelConfig, x) -> ModelConfig:
+    """``cfg``, with ``"dots"`` as ``"full"`` for a DTensor ``x``: selective
+    checkpointing replays the forward's op stream, which DTensor's cached
+    shape propagation changes between the forward and the recompute, so on
+    a mesh the whole layer is recomputed (same values, more FLOPs)."""
+    from torch.distributed.tensor import DTensor
+    if cfg.remat_policy == "dots" and isinstance(x, DTensor):
+        return dataclasses.replace(cfg, remat_policy="full")
+    return cfg
 
 
 def remat_passes(cfg: ModelConfig) -> int:
@@ -321,10 +463,11 @@ def forward(params: Transformer, cfg: ModelConfig,
             c = caches[i] if caches is not None else None
             if remat:
                 x, nc, aux = _remat(functools.partial(layer, cfg=cfg),
-                                    cfg)(x)
+                                    _remat_cfg(cfg, x))(x)
             else:
                 x, nc, aux = layer(x, cfg, cache=c, pos=pos,
                                    make_cache=make_cache)
+            x = sharding.constrain(x, sharding.act_spec_btd(x.shape[1]))
             if aux is not None:
                 aux_total = aux_total + aux
             if new_caches is not None:
@@ -338,7 +481,12 @@ def forward(params: Transformer, cfg: ModelConfig,
             logits = x @ params.unembed.w.to(dt)
         if cfg.input_mode == "audio_codes":
             b, s, _ = logits.shape
-            logits = logits.reshape(b, s, cfg.n_codebooks, cfg.vocab_size)
+            logits = sharding.reshape(logits, b, s, cfg.n_codebooks,
+                                      cfg.vocab_size)
+        logits = sharding.constrain(
+            logits, sharding.logits_spec() if cfg.input_mode != "audio_codes"
+            else sharding.P(sharding.batch_axes(), None, None,
+                            sharding.rules_or_default().model))
         if make_cache and max_len is not None:
             new_caches = _pad_caches(new_caches, cfg, max_len)
     return logits, aux_total / n_moe, new_caches
@@ -366,7 +514,7 @@ def loss_fn(params: Transformer, cfg: ModelConfig,
     mask = (targets >= 0).float()
     safe_t = torch.clamp(targets, min=0)
     lse = torch.logsumexp(logits, dim=-1)
-    true_logit = torch.gather(logits, -1, safe_t[..., None])[..., 0]
+    true_logit = _pick(logits, safe_t)
     ce = (lse - true_logit) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = ce.sum() / denom
@@ -374,6 +522,40 @@ def loss_fn(params: Transformer, cfg: ModelConfig,
     total = loss + zl + cfg.router_aux_weight * aux
     metrics = {"loss": loss, "z_loss": zl, "moe_aux": aux, "tokens": denom}
     return total, metrics
+
+
+def _pick(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``logits[..., targets]``.  On a DTensor whose vocab (last) dim is
+    split over one mesh dim, each device picks from its own slice and the
+    picks leave as ``Partial`` sums (one all-reduce of ``targets``' size),
+    the vocab-parallel cross-entropy's gather."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    split = _vocab_split(logits, logits.ndim - 1)
+    if not split:
+        return torch.gather(logits, -1, targets[..., None])[..., 0]
+    mesh = logits.device_mesh
+    if len(split) > 1 or logits.shape[-1] % mesh.size(split[0]):
+        full = [Replicate() if m in split else p
+                for m, p in enumerate(logits.placements)]
+        return _pick(logits.redistribute(mesh, full), targets)
+    m = split[0]
+    t_pl = [Replicate() if i == m else p
+            for i, p in enumerate(logits.placements)]
+    out_pl = [Partial() if i == m else p for i, p in enumerate(t_pl)]
+    v_local = logits.shape[-1] // mesh.size(m)
+
+    def local(lg, t):
+        t = t - sharding.local_rank(mesh, m) * v_local
+        ok = (t >= 0) & (t < v_local)
+        got = torch.gather(lg, -1, t.clamp(0, v_local - 1)[..., None])[..., 0]
+        return torch.where(ok, got, torch.zeros_like(got))
+
+    picked = local_map(local, out_placements=out_pl,
+                       in_placements=(logits.placements, t_pl),
+                       redistribute_inputs=True)(logits, targets)
+    return picked.redistribute(mesh, t_pl)
 
 
 def prefill(params: Transformer, cfg: ModelConfig,

@@ -6,14 +6,19 @@ quantities for the co-simulation (DESIGN.md §15): every offering gets a
 latency** (what the SLO mask filters on), derived from the ML stack
 instead of CoreMark alone.
 
-Derivation.  The reference has two modes with identical *ranking* by
-construction; this package ports the analytic one:
+Derivation (two modes, identical *ranking* by construction):
 
-* ``roofline`` — in the reference, a compiled reduced decode cell whose
-  HLO roofline rescales the analytic bound by an efficiency factor.  Not
-  ported yet (it needs the roofline module and the sharded decode cells):
-  ``mode="roofline"`` raises ``NotImplementedError``, and ``"auto"``
-  resolves to ``"analytic"``.
+* ``roofline`` — count a reduced decode cell: the smoke config of
+  ``profile.arch``, ``serving.make_sharded_decode`` on a 1×1
+  ``("data","model")`` mesh, run once on abstract (``meta``) parameters,
+  cache and batch under :func:`repro_torch.roofline.analyze_step` (the
+  port's counterpart of the reference's compiled-HLO walk), and turn
+  ``Roofline.step_s`` into an *efficiency factor* — counted step time over
+  the ideal weight-stream bound on the same cell, both at the roofline
+  module's H100 constants — that rescales the analytic full-model bound
+  (both roofline terms are linear in N, so the factor transfers; it
+  captures what the analytic bound misses: KV-cache traffic, unfused
+  elementwise passes, layout copies).
 * ``analytic`` — the ``model_flops`` model: a decode step
   over B concurrent rows on a D-device pod moves the active weights once
   plus the KV cache of B rows at the pinned context length
@@ -21,6 +26,11 @@ construction; this package ports the analytic one:
   ``2·N`` FLOPs per row (``compute_s = 2·N·B/(PEAK_FLOPS·D)``);
   ``step_s = max`` of the two.  At the default profile the KV term
   dominates — decode at 32 k context is cache-bound.
+
+``"auto"`` resolves to ``"roofline"`` (the reference's choice whenever its
+ML stack imports); ``KUBEPACS_SERVE_PERF=analytic`` pins the analytic
+model.  Only ``"auto"`` degrades to analytic, with a warning, when the
+count fails; an explicit ``"roofline"`` raises.
 
 Either way ``token_s_ref`` is the per-token seconds of the *reference*
 machine (a gen-6 intel core, ``GEN6_CORE_SCORE``).  Offerings scale it by
@@ -37,9 +47,11 @@ counters for the invalidation tests.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,12 +62,12 @@ from ..core.market import GEN6_CORE_SCORE
 #: reference's roofline module (its per-chip ``PEAK_FLOPS`` and ``HBM_BW``):
 #: they are the reference analytic model's inputs, which the parity tests
 #: pin so that serving traces stay byte-equal.  They state no speed of the
-#: card this package runs on.
+#: card this package runs on (``repro_torch.roofline`` holds the H100's).
 PEAK_FLOPS = 197e12
 HBM_BW = 819e9
 
-#: env override for the default perf-model mode (``analytic`` is the only
-#: mode ported; ``KUBEPACS_SERVE_PERF=analytic`` pins it explicitly)
+#: env override for the default perf-model mode
+#: (``KUBEPACS_SERVE_PERF=analytic`` pins the analytic model)
 ENV_MODE = "KUBEPACS_SERVE_PERF"
 
 _MODES = ("auto", "roofline", "analytic")
@@ -90,10 +102,7 @@ class ServingProfile:
             object.__setattr__(self, field, int(getattr(self, field)))
 
     def resolved_mode(self) -> str:
-        if self.mode != "auto":
-            return self.mode
-        # the roofline mode is not ported, so "auto" is the analytic model
-        return "analytic"
+        return "roofline" if self.mode == "auto" else self.mode
 
     @property
     def digest(self) -> str:
@@ -130,6 +139,78 @@ def analytic_token_s(profile: ServingProfile) -> float:
     return max(compute_s, memory_s)
 
 
+@contextlib.contextmanager
+def _one_device_mesh():
+    """A 1×1 ``("data","model")`` mesh of this rank, with no process group
+    of its own (size-1 dims issue no collective); a fake group of one rank
+    stands in for the default group while none is initialised."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    own = not dist.is_initialized()
+    if own:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=1)
+    try:
+        yield DeviceMesh("cpu", torch.tensor([[dist.get_rank()]]),
+                         mesh_dim_names=("data", "model"),
+                         _init_backend=False)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def _roofline_token_s(profile: ServingProfile) -> float:
+    """Count a reduced decode cell (smoke twin, capped batch/seq so it
+    counts in seconds) on abstract tensors, and rescale the analytic
+    full-model bound by the cell's efficiency factor (counted step time /
+    ideal weight-stream bound, both at ``repro_torch.roofline``'s
+    constants)."""
+    import torch
+
+    from .. import roofline, serving, sharding
+    from ..configs.base import SHAPES, InputShape, get_config
+    from ..data.pipeline import batch_pspecs
+    from ..models import transformer
+
+    cfg = get_config(profile.arch, smoke=True)
+    full = SHAPES[profile.shape]
+    if full.kind != "decode":
+        raise ValueError(f"serving profile needs a decode shape, got "
+                         f"{profile.shape!r} ({full.kind})")
+    cell = InputShape("serve_cell", seq_len=min(full.seq_len, 2048),
+                      global_batch=min(profile.batch_per_pod, 8),
+                      kind="decode")
+    rules = sharding.single_pod_rules()
+    with _one_device_mesh() as mesh, sharding.mesh_context(mesh, rules):
+        aparams = transformer.abstract_params(cfg)
+        acache = transformer.abstract_cache(cfg, cell.global_batch,
+                                            cell.seq_len)
+        key = "codes" if cfg.input_mode == "audio_codes" else "tokens"
+        shape = ((cell.global_batch, cfg.n_codebooks, 1)
+                 if key == "codes" else (cell.global_batch, 1))
+        tokens = {key: torch.empty(shape, dtype=torch.int32, device="meta")}
+        step = serving.make_sharded_decode(
+            cfg, rules, batch_pspecs(cfg, cell, rules), donate=False)
+        # the last slot: a full cache
+        cost = roofline.analyze_step(step, aparams, acache, tokens,
+                                     cell.seq_len - 1)
+    rl = roofline.roofline_of(cost)
+    # efficiency factor: the counted roofline over the *same cell's* ideal
+    # bound (weights + its cache bytes) — transfers to the full model
+    # because both roofline terms are linear in the streamed bytes
+    smoke_active = float(transformer.active_params(cfg))
+    cache_bytes = float(sum(t.numel() * t.element_size()
+                            for layer in acache for t in layer.values()))
+    ideal_s = max(2.0 * smoke_active * cell.global_batch
+                  / roofline.PEAK_FLOPS,
+                  (2.0 * smoke_active + cache_bytes) / roofline.HBM_BW)
+    eff = rl.step_s / max(ideal_s, 1e-30)
+    return analytic_token_s(profile) * eff
+
+
 #: step cache: (arch, shape, active_params, batch_per_pod, resolved mode)
 #: → reference per-token seconds.  Module-level so every policy / bench /
 #: replica run in a process shares one compile.
@@ -152,14 +233,10 @@ def clear_caches() -> None:
 
 def reference_token_s(profile: ServingProfile) -> Tuple[float, str]:
     """(per-token seconds at speed factor 1.0, resolved mode), cached.
-    ``auto`` resolves to analytic; ``mode="roofline"`` raises
-    ``NotImplementedError`` until the roofline model is ported."""
+    ``auto`` degrades roofline → analytic with a warning if the count
+    fails (a broken distributed install ≠ a broken co-simulation); an
+    explicit ``mode="roofline"`` propagates the error."""
     mode = profile.resolved_mode()
-    if mode == "roofline":
-        raise NotImplementedError(
-            "serve_sim: the roofline perf model is not ported yet (it needs "
-            "the roofline module and sharded decode cells, ROADMAP.md "
-            f"Queue 1 item 4); use mode='analytic' or {ENV_MODE}=analytic")
     key = (profile.arch, profile.shape, profile.active_params,
            profile.kv_bytes_per_token, profile.context_len,
            profile.devices_per_pod, profile.batch_per_pod, mode)
@@ -167,7 +244,19 @@ def reference_token_s(profile: ServingProfile) -> Tuple[float, str]:
         _STATS["step_hits"] += 1
         return _STEP_CACHE[key], mode
     _STATS["step_misses"] += 1
-    token_s = analytic_token_s(profile)
+    if mode == "roofline":
+        try:
+            token_s = _roofline_token_s(profile)
+        except Exception as exc:  # noqa: BLE001 — "auto" degrades, loudly
+            if profile.mode == "roofline":
+                raise
+            warnings.warn(f"serve_sim: roofline perf model unavailable "
+                          f"({exc!r}); falling back to analytic")
+            mode = "analytic"
+            key = key[:-1] + (mode,)
+            token_s = analytic_token_s(profile)
+    else:
+        token_s = analytic_token_s(profile)
     _STEP_CACHE[key] = token_s
     return token_s, mode
 

@@ -20,7 +20,7 @@ modes, differing only in the :class:`MarketSource` behind it:
 
 The engine also exposes an incremental event-stream API
 (:meth:`ClusterSim.advance` / :meth:`ClusterSim.current_snapshot`) used by
-the reference's ``runtime.elastic.ElasticSpotTrainer`` (not ported yet),
+``runtime.elastic.ElasticSpotTrainer``,
 which owns its own training loop but sources market time, interrupts, and
 the trace from the engine — and an *observer* fan-out (DESIGN.md §10): the
 policy and any ``observers=`` passed to the constructor receive every

@@ -222,14 +222,25 @@ def test_check_inputs_raises_on_what_the_kernel_does_not_take(case, exc):
 
 
 @pytest.mark.parametrize("hd, match", [(12, "not taken"),
-                                       (16, "CUDA device")])
+                                       (16, None)])
 def test_cuda_branch_checks_inputs_first(hd, match):
-    """Off the CPU the wrapper calls :func:`check_inputs` before anything
-    else: a bf16 head it does not take raises as such, a taken one reaches
-    the device check (meta tensors stand in for a card)."""
+    """Off the CPU the wrapper goes through the op
+    ``repro_torch::flash_attention``, whose implementations call
+    :func:`check_inputs` before anything else: a bf16 head it does not
+    take raises as such; on ``meta`` tensors (the cost model's abstract
+    stand-ins for the card) a taken one gets the op's output shapes, and
+    nothing is launched or counted."""
     q, k, v = _blank(1, 8, 8, 2, 1, hd, torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match=match):
-        flash_attention_cuda(q, k, v)
+    launches = flash_attention_cuda.launches
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            flash_attention_cuda(q, k, v)
+        return
+    o, lse = flash_attention_cuda(q, k, v)
+    assert o.is_meta and o.shape == q.shape and o.dtype == q.dtype
+    assert lse.is_meta and lse.shape == (1, 8, 1, 2)
+    assert lse.dtype == torch.float32
+    assert flash_attention_cuda.launches == launches
 
 
 def test_flash_empty_rows_are_zero_with_minus_inf_lse():

@@ -348,14 +348,17 @@ def test_serving_table_and_demand_schedule(kind):
 
 
 def test_perf_model_modes(monkeypatch):
-    """``auto`` is the analytic model in the port; ``roofline`` raises."""
+    """``auto`` is the roofline model in the port, as in the reference
+    whenever jax imports; the env pin gives the analytic model, whose
+    carried constants are the reference's."""
     monkeypatch.delenv("KUBEPACS_SERVE_PERF")
     prof = port_serve.default_profile()
-    assert prof.mode == "auto" and prof.resolved_mode() == "analytic"
-    assert port_serve.reference_token_s(prof)[1] == "analytic"
-    with pytest.raises(NotImplementedError, match="roofline"):
-        port_serve.reference_token_s(port_serve.ServingProfile(
-            mode="roofline"))
+    assert prof.mode == "auto" and prof.resolved_mode() == "roofline"
+    assert port_serve.reference_token_s(prof)[1] == "roofline"
+    assert port_serve.reference_token_s(port_serve.ServingProfile(
+        mode="roofline"))[1] == "roofline"
+    monkeypatch.setenv("KUBEPACS_SERVE_PERF", "analytic")
+    assert port_serve.default_profile().resolved_mode() == "analytic"
     from repro.roofline import HBM_BW, PEAK_FLOPS
     from repro_torch.serve_sim import perf_model
     assert (perf_model.PEAK_FLOPS, perf_model.HBM_BW) == (PEAK_FLOPS,
