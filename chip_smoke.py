@@ -148,7 +148,34 @@ system's real sizes and holds every result to the host:
    ``numpy``, ``cover_dp`` launched; (d) ``python -m
    repro_torch.launch.dryrun --arch internvl2-1b --shape decode_32k
    --multi-pod`` in a subprocess: status ok on 512 fake ranks
-   ("phase15" lines).
+   ("phase15" lines);
+16. the coarsening ladder at ``benchmarks/bench_scale.py``'s size (its
+   market and demands, copied): 1,597 items, 6,606 bundles, ``pods_gcd``
+   8, from 5,000 to 1,000,000 pods.  (a) At each scale every prescan α's
+   pool and ``IlpStats`` through ``torch`` and ``torch:fused`` bitwise
+   ``numpy``'s, one ``bracketed_gss_many`` decision equal to ``numpy``'s
+   with ``torch:fused`` taking a fused record at 5 k and 20 k and
+   declining the approx regime above (its batch then launches
+   ``cover_dp``), zero fallback solves, the walls in turns over five
+   rounds and each backend's ``scale_ratio_1m_vs_5k``; ``provision()``
+   at 1 M pods through the default backend equal to NumPy's. (b) The
+   exact engine (coarsening off) through ``numpy``, ``torch`` and the
+   fused prescan stack at every scale, bitwise (DP widths to 1,000,001:
+   ``cover_dp``'s global-scratch rows, ``fused_rows``' ``dp_global``
+   rows, one 6.6 GB row of bits a launch at 1 M, with the peak device
+   memory), and the ladder held to it: exact and gcd rows bitwise, every
+   approx row within its certificate and ``rel_gap``. (c) The gcd tier
+   pinned (``max_rows`` 1<<20) at 200 k and 1 M: decisions and prescan
+   rows of ``torch`` and ``torch:fused`` bitwise ``numpy``'s (width
+   125,001 at 1 M, two rows a launch), every gcd row bitwise the exact
+   engine's. (d) ``FleetSim`` over ``high_demand_scenario()`` with 32
+   interrupt seeds, traces recorded, in turns through ``numpy``,
+   ``torch:fused`` and ``torch``: byte-equal, no fallback solve,
+   replicas/s and fused records beside the launches. (e) ``cover_dp``
+   at the widest dispatch of the exact 1 M rows and ``fused_rows`` at the
+   pinned-gcd 1 M prescan rows against their plain versions (and
+   ``cover_dp`` against the host) bitwise, timed, with their bounds
+   ("phase16" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -156,7 +183,8 @@ calls queued behind a sleep kernel).  The line before the last is the
 kernel record (times, launches on the main paths, bounds; phase 14's
 training launches in ``launches_train`` and its gradient readings in
 ``train``, phase 15's sharded and roofline-serving launches in
-``launches_cost``); the last line
+``launches_cost``, phase 16's launches in ``launches_scale`` and its
+readings at the new widths in ``scale``); the last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -379,10 +407,11 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-15 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-16 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
     13 in :func:`run_moe`, 14 in :func:`run_train`, 15 in
-    :func:`run_cost`); returns the kernel record."""
+    :func:`run_cost`, 16 in :func:`run_scale`); returns the kernel
+    record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -626,6 +655,7 @@ def run(dev) -> dict:
     moe = run_moe(dev)
     train = run_train(dev)
     cost = run_cost(dev)
+    scale = run_scale(dev)
     for k in kernels:
         k["launches_sim"] = sim.get(k["name"], 0)
         k["launches_policies"] = policies.get(k["name"], 0)
@@ -638,6 +668,10 @@ def run(dev) -> dict:
         if k["name"] in ("flash_attention", "cover_dp"):
             k["launches_cost"] = cost["launches"].get(k["name"], 0)
             k["launches"] += k["launches_cost"]
+        if k["name"] in ("cover_dp", "fused_rows"):
+            k["launches_scale"] = scale["launches"].get(k["name"], 0)
+            k["launches"] += k["launches_scale"]
+            k["scale"] = scale[k["name"]]
         if k["name"] == "flash_attention":
             k["launches_moe"] = moe["launches"]
             k["launches"] += moe["launches"]
@@ -1604,6 +1638,77 @@ def outcome(results):
             for r in results]
 
 
+def fleet_in_turns(drv, name, scenario, replicas, specs):
+    """``FleetSim`` of ``scenario`` over ``replicas`` interrupt seeds, traces
+    recorded, through ``numpy`` and each of ``specs`` in turns (numpy,
+    specs, specs reversed, numpy) under ``drv`` (a :class:`SimDriver`):
+    every run equal to the first numpy run's, no fused fallback solve,
+    ``fused_rows`` launched by every ``torch:fused`` run and ``cover_dp``
+    by every ``torch`` run; prints a line a run and the replicas/s in
+    turns.  Returns ``(spec, launch deltas)`` of each run."""
+    from repro_torch.sim import FleetSim
+
+    seeds = list(range(replicas))
+    ref = None
+    rates = collections.defaultdict(list)
+    runs = []
+    for spec in ("numpy", *specs, *reversed(specs), "numpy"):
+        sims = []
+
+        def go():
+            sim = FleetSim(scenario, seeds, record_traces=True, backend=spec)
+            sims.append(sim)
+            return sim.run()
+
+        results, wall, got, k_ms = drv.drive(spec, go, name)
+        stats = sims[0].stats()
+        out = outcome(results)
+        if ref is None:
+            ref = out
+        else:
+            check(out == ref, f"{drv.phase} {name} fleet {spec}: a replica "
+                  "differs from the numpy fleet's")
+        if spec == "torch:fused":
+            check(stats["device_cache_fallback_solves"] == 0,
+                  f"{drv.phase} {name} fleet: fallback solves {stats}")
+            check(got[1] > 0, f"{drv.phase} {name} fleet: no fused_rows "
+                  "launch")
+        if spec == "torch":
+            check(got[0] > 0, f"{drv.phase} {name} fleet: no cover_dp "
+                  "launch")
+        runs.append((spec, got))
+        rates[spec].append(replicas / wall)
+        lookups = stats["memo_hits"] + stats["memo_misses"]
+        ws = sorted(drv.widths)
+        cache = ("" if "device_cache_misses" not in stats else
+                 f"; device-market cache hits "
+                 f"{stats['device_cache_hits']} misses "
+                 f"{stats['device_cache_misses']} fallback solves "
+                 f"{stats['device_cache_fallback_solves']} verify solves "
+                 f"{stats['device_cache_verify_solves']} fused records "
+                 f"{sims[0].solve_batch.backend.fused_records}")
+        print(f"{drv.phase} fleet {name} {spec}: {replicas} replicas x "
+              f"{stats['ticks']} ticks, wall {wall:.3f} s, "
+              f"{replicas / wall:.2f} replicas/s; memo hit rate "
+              f"{stats['memo_hits'] / max(lookups, 1):.4f} "
+              f"({stats['memo_hits']} hits, {stats['memo_misses']} "
+              f"misses); compiled markets {stats['compile_misses']} "
+              f"(hits {stats['compile_hits']}); batched searches "
+              f"{len(ws)}, widths min/median/"
+              f"max {ws[0] if ws else 0}/{ws[len(ws) // 2] if ws else 0}/"
+              f"{ws[-1] if ws else 0}, decisions {sum(ws)}, their wall "
+              f"{drv.search_s:.3f} s ({drv.search_s / wall:.4f}); "
+              f"launches "
+              f"cover_dp {got[0]} fused_rows {got[1]} score {got[2]}; "
+              f"kernels {k_ms:.3f} ms, share of wall "
+              f"{k_ms / 1e3 / wall:.4f}{cache}"
+              + (": equal to numpy" if out is not ref else ""))
+    print(f"{drv.phase} fleet {name} replicas/s in turns: " + "; ".join(
+        f"{spec} " + ", ".join(f"{r:.2f}" for r in rs)
+        for spec, rs in rates.items()))
+    return runs
+
+
 def run_sim(dev) -> dict:
     """Phase 11 on ``dev``: the simulation layer at ``bench_fleet``'s
     full-run sizes; returns each kernel's launches on this path."""
@@ -1612,73 +1717,12 @@ def run_sim(dev) -> dict:
     from repro_torch.risk.backtest import (interrupt_storm_scenario,
                                            pressure_crunch_scenario)
     from repro_torch.serve_sim import clear_caches
-    from repro_torch.sim import (ClusterSim, FleetSim,
-                                 heterogeneous_demand_scenario,
+    from repro_torch.sim import (ClusterSim, heterogeneous_demand_scenario,
                                  serving_scenario)
 
     t_phase = time.perf_counter()
     drv = SimDriver(torch, "phase11")
-    counts, drive, widths = drv.counts, drv.drive, drv.widths
-
-    def fleet(name, scenario, replicas, specs):
-        """The fleet through ``numpy`` and each of ``specs``, in turns
-        (numpy, specs, specs reversed, numpy): every run equal to the
-        first numpy run's."""
-        seeds = list(range(replicas))
-        ref = None
-        rates = collections.defaultdict(list)
-        for spec in ("numpy", *specs, *reversed(specs), "numpy"):
-            sims = []
-
-            def go():
-                sim = FleetSim(scenario, seeds, record_traces=True,
-                               backend=spec)
-                sims.append(sim)
-                return sim.run()
-
-            results, wall, got, k_ms = drive(spec, go, name)
-            stats = sims[0].stats()
-            out = outcome(results)
-            if ref is None:
-                ref = out
-            else:
-                check(out == ref, f"phase11 {name} fleet {spec}: a replica "
-                      "differs from the numpy fleet's")
-            if spec == "torch:fused":
-                check(stats["device_cache_fallback_solves"] == 0,
-                      f"phase11 {name} fleet: fallback solves {stats}")
-                check(got[1] > 0, f"phase11 {name} fleet: no fused_rows "
-                      "launch")
-            if spec == "torch":
-                check(got[0] > 0, f"phase11 {name} fleet: no cover_dp launch")
-            rates[spec].append(replicas / wall)
-            lookups = stats["memo_hits"] + stats["memo_misses"]
-            ws = sorted(widths)
-            cache = ("" if "device_cache_misses" not in stats else
-                     f"; device-market cache hits "
-                     f"{stats['device_cache_hits']} misses "
-                     f"{stats['device_cache_misses']} fallback solves "
-                     f"{stats['device_cache_fallback_solves']} verify solves "
-                     f"{stats['device_cache_verify_solves']}")
-            print(f"phase11 fleet {name} {spec}: {replicas} replicas x "
-                  f"{stats['ticks']} ticks, wall {wall:.3f} s, "
-                  f"{replicas / wall:.2f} replicas/s; memo hit rate "
-                  f"{stats['memo_hits'] / max(lookups, 1):.4f} "
-                  f"({stats['memo_hits']} hits, {stats['memo_misses']} "
-                  f"misses); compiled markets {stats['compile_misses']} "
-                  f"(hits {stats['compile_hits']}); batched searches "
-                  f"{len(ws)}, widths min/median/"
-                  f"max {ws[0] if ws else 0}/{ws[len(ws) // 2] if ws else 0}/"
-                  f"{ws[-1] if ws else 0}, decisions {sum(ws)}, their wall "
-                  f"{drv.search_s:.3f} s ({drv.search_s / wall:.4f}); "
-                  f"launches "
-                  f"cover_dp {got[0]} fused_rows {got[1]} score {got[2]}; "
-                  f"kernels {k_ms:.3f} ms, share of wall "
-                  f"{k_ms / 1e3 / wall:.4f}{cache}"
-                  + (": equal to numpy" if out is not ref else ""))
-        print(f"phase11 fleet {name} replicas/s in turns: " + "; ".join(
-            f"{spec} " + ", ".join(f"{r:.2f}" for r in rs)
-            for spec, rs in rates.items()))
+    counts, drive = drv.counts, drv.drive
 
     def standalone(name, scenario):
         ref = None
@@ -1699,12 +1743,14 @@ def run_sim(dev) -> dict:
                   f"{k_ms:.3f} ms, share of wall {k_ms / 1e3 / wall:.4f}"
                   + (": equal to numpy" if spec != "numpy" else ""))
 
-    fleet("hetero", heterogeneous_demand_scenario(max_offerings=250), 128,
-          ("torch:fused", "torch"))
-    fleet("storm", interrupt_storm_scenario(max_offerings=250), 256,
-          ("torch:fused",))
-    fleet("crunch", pressure_crunch_scenario(max_offerings=250), 256,
-          ("torch:fused",))
+    fleet_in_turns(drv, "hetero",
+                   heterogeneous_demand_scenario(max_offerings=250), 128,
+                   ("torch:fused", "torch"))
+    fleet_in_turns(drv, "storm", interrupt_storm_scenario(max_offerings=250),
+                   256, ("torch:fused",))
+    fleet_in_turns(drv, "crunch",
+                   pressure_crunch_scenario(max_offerings=250), 256,
+                   ("torch:fused",))
     standalone("storm", interrupt_storm_scenario(max_offerings=250))
     saved_mode = os.environ.get("KUBEPACS_SERVE_PERF")
     os.environ["KUBEPACS_SERVE_PERF"] = "analytic"
@@ -2900,6 +2946,435 @@ def run_cost(dev) -> dict:
     print(f"phase15 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": dict(launches),
             "shares": shares, "measured_ms": measured}
+
+
+
+#: bench_scale's configuration (``benchmarks/bench_scale.py:62-85`` and
+#: ``:167-218``), copied: that module imports the JAX package.  The market
+#: is ``generate_catalog(seed=17, max_offerings=1600)`` preprocessed for
+#: quarter-vCPU / quarter-GiB pods (``pods_gcd`` 8); one decision is a
+#: bracketed GSS over the prescan grid ``i/8``
+SCALE_CATALOG = dict(seed=17, max_offerings=1600)
+SCALE_POD = dict(cpu_per_pod=0.25, mem_per_pod=0.25)
+SCALES = (5_000, 20_000, 50_000, 200_000, 1_000_000)
+PRESCAN_GRID = tuple(i / 8 for i in range(9))
+#: demands at which the fused plane takes the default ladder's batch: above
+#: them ``ceil(demand / 8) > max_rows`` puts rows in the approx regime,
+#: which ``FusedTorchBackend.fused_gss_record`` declines
+SCALE_FUSED_MAX = 20_000
+#: the gcd tier pinned (``high_demand_scenario``'s docstring) and where
+SCALE_PINNED = (200_000, 1_000_000)
+#: timing rounds in turns, and the high-demand fleet's interrupt seeds
+SCALE_ROUNDS = 5
+SCALE_SEEDS = 32
+
+
+def in_turns(fns, rounds: int):
+    """Every wall of each contender over ``rounds`` rounds, the visit order
+    rotated each round (bench_scale's ``_interleaved``, all walls kept)."""
+    names = list(fns)
+    walls = {k: [] for k in names}
+    for r in range(rounds):
+        for k in names[r % len(names):] + names[:r % len(names)]:
+            t0 = time.perf_counter()
+            fns[k]()
+            walls[k].append(time.perf_counter() - t0)
+    return walls
+
+
+def stat_keys(stats):
+    """Each ``IlpStats`` as the repr of its fields: floats bit for bit
+    (repr round-trips and tells -0.0 from 0.0)."""
+    import dataclasses
+    return [repr(dataclasses.astuple(s)) for s in stats]
+
+
+def same_gss(a, b) -> bool:
+    """Two ``bracketed_gss_many`` outputs: pools, α and traces equal."""
+    return len(a) == len(b) and all(
+        (pa is None) == (pb is None) and ta == tb and (
+            pa is None or (pa.as_dict(), pa.counts, pa.alpha)
+            == (pb.as_dict(), pb.counts, pb.alpha))
+        for (pa, ta), (pb, tb) in zip(a, b))
+
+
+def run_scale(dev) -> dict:
+    """Phase 16 on ``dev``: the coarsening ladder end to end at
+    bench_scale's size (16a the ladder decision by decision, with the walls
+    in turns and ``provision()`` at 1 M; 16b the ladder held to the exact
+    engine run on the card; 16c the pinned gcd tier; 16d the high-demand
+    fleet; 16e the kernels at the new widths); returns each decision-plane
+    kernel's launches on this path and 16e's readings."""
+    import torch
+
+    from repro_torch.core import (DEFAULT_COARSENING, CoarseningConfig,
+                                  FusedTorchBackend, KubePACSProvisioner,
+                                  NumpyBackend, Request, TorchBackend,
+                                  compile_market, generate_catalog,
+                                  get_backend, preprocess, solve_ilp_many)
+    from repro_torch.core import cover_dp as cdp
+    from repro_torch.core import fused_rows as fr
+    from repro_torch.core.gss import bracketed_gss_many
+    from repro_torch.sim import high_demand_scenario
+
+    t_phase = time.perf_counter()
+    exact_cfg = CoarseningConfig(enabled=False)
+    pinned_cfg = CoarseningConfig(max_rows=1 << 20)
+    catalog = generate_catalog(**SCALE_CATALOG)
+    items = preprocess(catalog, Request(pods=5_000, **SCALE_POD))
+    market = compile_market(items)
+    check((market.n, market.n_bundles, market.pods_gcd) == (1597, 6606, 8),
+          f"phase16 market: {market.n} items, {market.n_bundles} bundles, "
+          f"gcd {market.pods_gcd}")
+    grid = list(PRESCAN_GRID)
+    launches = collections.Counter()
+
+    class Widest(TorchBackend):
+        """Keeps the largest DP target and the widest bits launch (its
+        groups) of the dispatches it runs."""
+
+        def __init__(self, device):
+            super().__init__(device)
+            self.reset()
+
+        def reset(self):
+            self.max_target, self.widest = 0, (0, None)
+
+        def _dispatch(self, groups, with_bits):
+            for part in self._slices(groups, with_bits):
+                if not part:
+                    continue
+                self.max_target = max(self.max_target,
+                                      max(int(g[2]) for g in part))
+                size = sum(len(g[0]) * (int(g[2]) + 1) for g in part)
+                if with_bits and size > self.widest[0]:
+                    self.widest = (size, list(part))
+            return TorchBackend._dispatch(self, groups, with_bits)
+
+    class Stacks(FusedTorchBackend):
+        """Keeps the arguments of its last row stack."""
+
+        def _rows(self, *args, score_req=None):
+            self.last = args
+            return FusedTorchBackend._rows(self, *args, score_req=score_req)
+
+    bes = {"numpy": NumpyBackend(), "torch": Widest(dev),
+           "torch:fused": Stacks(dev)}
+    fused = bes["torch:fused"]
+
+    def counted(fn):
+        """``fn()`` with its kernel launches counted toward this path:
+        ``(result, (cover_dp launches, fused_rows launches))``."""
+        cdp.cover_dp.launches = fr.fused_rows.launches = 0
+        out = fn()
+        got = (cdp.cover_dp.launches, fr.fused_rows.launches)
+        launches["cover_dp"] += got[0]
+        launches["fused_rows"] += got[1]
+        return out, got
+
+    def rows(spec, demand, cfg):
+        """Every prescan α of one decision through a backend, stacked in
+        one engine call: ``(pools, stats)``."""
+        pools, stats = solve_ilp_many(items, [demand], [grid], market=market,
+                                      backend=bes[spec], return_stats=True,
+                                      coarsening=cfg)
+        return pools[0], stats[0]
+
+    def decide(spec, demand, cfg=DEFAULT_COARSENING):
+        return bracketed_gss_many(items, [demand], tolerance=TOLERANCE,
+                                  market=market, timer=fake_timer,
+                                  backend=bes[spec], coarsening=cfg)
+
+    def prescan(demand, cfg):
+        """The fused plane's prescan stack of one decision (every grid α,
+        one ``fused_rows`` stack): ``(pools, launches)``."""
+        (counts, feas), got = counted(lambda: fused._run_prescan(
+            market, [demand], [None], grid, cfg))
+        return [list(map(int, c)) if f else None
+                for c, f in zip(counts[0], feas[0])], got[1]
+
+    def stack_launches(demand, cfg):
+        """``fused_rows`` launches a prescan stack takes: its rows in slices
+        whose bits stay under the budget."""
+        width = fr.dp_width(demand, fused._coarse(market, cfg)) + 1
+        step = max(1, fused.bits_budget // (market.n_bundles * width))
+        return width, step, -(-len(grid) // step)
+
+    def fallbacks():
+        return fused.device_cache_info()["fallback_solves"]
+
+    def tier_str(stats):
+        return dict(collections.Counter(s.coarse for s in stats))
+
+    # -- 16a: the ladder, decision by decision --------------------------------
+    ladder, best = {}, collections.defaultdict(dict)
+    for demand in SCALES:
+        pools, stats = rows("numpy", demand, DEFAULT_COARSENING)
+        ladder[demand] = (pools, stats)
+        for spec in ("torch", "torch:fused"):
+            got, _n = counted(lambda: rows(spec, demand, DEFAULT_COARSENING))
+            check(got[0] == pools and stat_keys(got[1]) == stat_keys(stats),
+                  f"phase16a {demand}: {spec}'s prescan rows differ from "
+                  "numpy's")
+        want = decide("numpy", demand)
+        dec = {}
+        rec0 = fused.fused_records
+        for spec in ("torch", "torch:fused"):
+            out, got = counted(lambda: decide(spec, demand))
+            check(same_gss(out, want), f"phase16a {demand}: {spec}'s "
+                  "decision differs from numpy's")
+            dec[spec] = got
+        took = fused.fused_records - rec0
+        accept = demand <= SCALE_FUSED_MAX
+        check(took == int(accept) and fallbacks() == 0,
+              f"phase16a {demand}: fused records {took}, fallback solves "
+              f"{fallbacks()}")
+        f_cov, f_rows = dec["torch:fused"]
+        check(f_rows > 0 if accept else (f_rows == 0 and f_cov > 0),
+              f"phase16a {demand}: torch:fused launches (cover_dp, "
+              f"fused_rows) {dec['torch:fused']}")
+        check(dec["torch"][0] > 0, f"phase16a {demand}: no cover_dp launch")
+        walls = in_turns({spec: lambda spec=spec: decide(spec, demand)
+                          for spec in bes}, SCALE_ROUNDS)
+        for spec, ws in walls.items():
+            best[spec][demand] = min(ws)
+        pool = want[0][0]
+        print(f"phase16a pods={demand}: tiers {tier_str(stats)}, max "
+              f"certificate {max(s.gap_bound for s in stats)!r}; prescan "
+              "pools and IlpStats of torch and torch:fused bitwise numpy's; "
+              f"decision alpha={pool.alpha!r} nodes={sum(pool.counts)} equal "
+              f"to numpy's; torch:fused "
+              + ("took a fused record" if accept else
+                 "declined (approx regime: per-dispatch cover_dp)")
+              + f", launches cover_dp {f_cov} fused_rows {f_rows}, fallback "
+              f"solves 0; torch launches cover_dp {dec['torch'][0]}; walls "
+              f"(median / min of {SCALE_ROUNDS} in turns) " + ", ".join(
+                  f"{spec} {median(ws) * 1e3:.3f} / {min(ws) * 1e3:.3f} ms"
+                  for spec, ws in walls.items()))
+    print("phase16a scale_ratio_1m_vs_5k (min walls): " + ", ".join(
+        f"{spec} {b[max(SCALES)] / b[min(SCALES)]:.4f}"
+        for spec, b in best.items()))
+
+    check(isinstance(get_backend(), TorchBackend)
+          and get_backend().device == dev, "default backend is not the card")
+    req = Request(pods=1_000_000, **SCALE_POD)
+    prov_t = KubePACSProvisioner(timer=fake_timer,
+                                 coarsening=DEFAULT_COARSENING)
+    prov_n = KubePACSProvisioner(timer=fake_timer,
+                                 coarsening=DEFAULT_COARSENING,
+                                 backend=NumpyBackend())
+    t0 = time.perf_counter()
+    d_t, got = counted(lambda: prov_t.provision(req, catalog))
+    w_t = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d_n = prov_n.provision(req, catalog)
+    w_n = time.perf_counter() - t0
+    check(d_t == d_n and d_t.pool.as_dict() == d_n.pool.as_dict()
+          and d_t.alpha == d_n.alpha and d_t.trace == d_n.trace
+          and got[0] > 0, "phase16a provision(1,000,000) differs from the "
+          f"NumPy decision (launches {got})")
+    print(f"phase16a provision pods=1000000 (default backend torch): alpha="
+          f"{d_t.alpha!r} nodes={sum(d_t.pool.counts)} e_total="
+          f"{d_t.metrics['e_total']!r} launches cover_dp {got[0]}; wall "
+          f"torch {w_t * 1e3:.3f} ms numpy {w_n * 1e3:.3f} ms: equal to "
+          "NumPy")
+
+    # -- 16b: the ladder held to the exact engine -----------------------------
+    exact = {}
+    peak = None
+    for demand in SCALES:
+        t0 = time.perf_counter()
+        n_pools, n_stats = rows("numpy", demand, exact_cfg)
+        w_n = time.perf_counter() - t0
+        bes["torch"].reset()
+        t0 = time.perf_counter()
+        (t_pools, t_stats), got_t = counted(
+            lambda: rows("torch", demand, exact_cfg))
+        w_t = time.perf_counter() - t0
+        check(t_pools == n_pools and stat_keys(t_stats) == stat_keys(n_stats),
+              f"phase16b {demand}: torch's exact rows differ from numpy's")
+        if demand == max(SCALES):
+            widest = bes["torch"].widest
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        f_pools, f_launch = prescan(demand, exact_cfg)
+        w_f = time.perf_counter() - t0
+        width, step, n_launch = stack_launches(demand, exact_cfg)
+        if demand == max(SCALES):
+            peak = torch.cuda.max_memory_allocated(dev)
+        check(f_pools == n_pools and f_launch == n_launch,
+              f"phase16b {demand}: the fused exact prescan differs from "
+              f"numpy's ({f_launch} launches, {n_launch} expected)")
+        # the launches of a stack share one slice's scratch: at 1 M the
+        # peak holds one row of bits
+        check(peak is None or peak < step * market.n_bundles * width
+              + (1 << 30), f"phase16b {demand}: peak device memory {peak} "
+              f"B for {step} row(s) of {market.n_bundles * width} B of bits")
+        exact[demand] = (t_pools, t_stats)
+        max_gap = 0.0
+        for (pc, sc, pe, se) in zip(*ladder[demand], t_pools, t_stats):
+            check((pc is None) == (pe is None), f"phase16b {demand}: "
+                  "feasibility differs from the exact engine's")
+            if sc.coarse in ("exact", "gcd", "approx_fallback"):
+                check(pc == pe, f"phase16b {demand}: {sc.coarse} row not "
+                      "bitwise the exact engine's")
+                continue
+            true_gap = sc.objective - se.objective
+            bound_ = sc.gap_bound + 1e-6 * max(1.0, abs(se.objective))
+            rel = (DEFAULT_COARSENING.rel_gap * max(abs(se.objective), 1e-9)
+                   + 1e-9)
+            check(true_gap <= bound_ and true_gap <= rel,
+                  f"phase16b {demand}: approx certificate violated: true "
+                  f"gap {true_gap!r}, certificate {sc.gap_bound!r}, "
+                  f"rel budget {rel!r}")
+            max_gap = max(max_gap, true_gap)
+        print(f"phase16b pods={demand}: exact rows (targets up to "
+              f"{bes['torch'].max_target}, kept bundles up to "
+              f"{max(s.n_bundles for s in n_stats)}) of torch and the fused "
+              f"prescan (width {width}, {step} row(s) a launch, {f_launch} "
+              "launches) bitwise numpy's; ladder against them: tiers "
+              f"{tier_str(ladder[demand][1])}, exact/gcd rows bitwise, "
+              f"largest approx true gap {max_gap!r}; walls numpy "
+              f"{w_n:.3f} s, torch {w_t:.3f} s (cover_dp {got_t[0]}), "
+              f"torch:fused prescan {w_f:.3f} s"
+              + (f"; peak device memory {peak} B" if peak is not None
+                 else ""))
+
+    # -- 16c: the pinned gcd tier ---------------------------------------------
+    pinned_rows = None
+    for demand in SCALE_PINNED:
+        want = decide("numpy", demand, pinned_cfg)
+        walls, dec = {}, {}
+        rec0 = fused.fused_records
+        for spec in ("torch", "torch:fused"):
+            t0 = time.perf_counter()
+            out, dec[spec] = counted(lambda: decide(spec, demand, pinned_cfg))
+            walls[spec] = time.perf_counter() - t0
+            check(same_gss(out, want), f"phase16c {demand}: {spec}'s pinned "
+                  "decision differs from numpy's")
+        check(fused.fused_records - rec0 == 1 and fallbacks() == 0
+              and dec["torch:fused"][1] > 0 and dec["torch"][0] > 0,
+              f"phase16c {demand}: fused records "
+              f"{fused.fused_records - rec0}, launches (cover_dp, "
+              f"fused_rows) {dec}")
+        t0 = time.perf_counter()
+        decide("numpy", demand, pinned_cfg)
+        walls["numpy"] = time.perf_counter() - t0
+        n_pools, n_stats = rows("numpy", demand, pinned_cfg)
+        bes["torch"].reset()
+        (t_pools, t_stats), got_t = counted(
+            lambda: rows("torch", demand, pinned_cfg))
+        check(t_pools == n_pools and stat_keys(t_stats) == stat_keys(n_stats),
+              f"phase16c {demand}: torch's pinned rows differ from numpy's")
+        f_pools, f_launch = prescan(demand, pinned_cfg)
+        width, step, n_launch = stack_launches(demand, pinned_cfg)
+        check(f_pools == n_pools and f_launch == n_launch,
+              f"phase16c {demand}: the fused pinned prescan differs from "
+              f"numpy's ({f_launch} launches, {n_launch} expected)")
+        if demand == max(SCALE_PINNED):
+            pinned_rows = fused.last
+        e_pools, e_stats = exact[demand]
+        n_gcd = 0
+        for pc, sc, pe, se in zip(n_pools, n_stats, e_pools, e_stats):
+            if sc.coarse == "gcd":
+                n_gcd += 1
+                check(pc == pe and sc.objective == se.objective,
+                      f"phase16c {demand}: a gcd row is not the exact "
+                      "engine's")
+        check(n_gcd > 0, f"phase16c {demand}: no gcd row")
+        print(f"phase16c pods={demand} pinned gcd (max_rows 1<<20): tiers "
+              f"{tier_str(n_stats)}; decisions of torch and torch:fused "
+              "(a fused record, fallback solves 0) bitwise numpy's; prescan "
+              f"rows of torch (cover_dp targets up to "
+              f"{bes['torch'].max_target}) and torch:fused (fused_rows width "
+              f"{width}, {step} row(s) a launch under the "
+              f"{fused.bits_budget} B budget, {f_launch} launches) bitwise "
+              f"numpy's; {n_gcd} gcd rows bitwise the exact engine's; walls "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+
+    # -- 16d: the high-demand fleet --------------------------------------------
+    # its batches are in the approx regime but for re-provisioning after
+    # an interrupt, so torch:fused takes few records and runs cover_dp
+    drv = SimDriver(torch, "phase16d")
+    for spec, got in fleet_in_turns(drv, "high_demand",
+                                    high_demand_scenario(), SCALE_SEEDS,
+                                    ("torch:fused", "torch")):
+        check(spec != "torch:fused" or got[0] > 0,
+              f"phase16d fleet: torch:fused launched no cover_dp ({got})")
+    launches["cover_dp"] += drv.counts["cover_dp"]
+    launches["fused_rows"] += drv.counts["fused_rows"]
+
+    # -- 16e: the kernels at the new widths -------------------------------------
+    groups = widest[1]
+    batch = cdp.CoverBatch.build(groups, dev)
+    dp_k, bits_k = cdp.cover_dp(batch, True)
+    dp_p, bits_p = cdp.cover_dp_plain(batch, True)
+    torch.cuda.synchronize()
+    check(torch.equal(dp_k, dp_p) and torch.equal(bits_k, bits_p),
+          "phase16e cover_dp: kernel != plain version at the exact 1M "
+          "dispatch")
+    err = max_abs_err(dp_k.cpu().numpy(), dp_p.cpu().numpy())
+    del dp_p, bits_p
+    got = batch.split(dp_k.cpu().numpy(), bits_k.cpu().numpy())
+    for (d, b), (dh, bh) in zip(got, NumpyBackend().cover_bits(groups)):
+        check(d.tobytes() == dh.tobytes() and np.array_equal(b, bh),
+              "phase16e cover_dp: kernel != host at the exact 1M dispatch")
+    del got, dp_k, bits_k
+    k_ms = cuda_ms(torch, lambda: cdp.cover_dp(batch, True), 2)
+    p_ms = cuda_ms(torch, lambda: cdp.cover_dp_plain(batch, True), 1)
+    b_ms, b_by = bound(groups)
+    chain = longest(groups)
+    cover_rec = {"shape": f"widest dispatch of the exact 1M rows: G="
+                          f"{len(groups)} sum B={batch.n_bundles} max T="
+                          f"{int(batch.targets.max())}",
+                 "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "ns_a_bundle_step": k_ms * 1e6 / max(chain, 1)}
+    print(f"phase16e cover_dp at the {cover_rec['shape']} ({widest[0]} B of "
+          f"bits, global-scratch rows): dp and bits bitwise the plain "
+          f"version's and the host's; kernel {k_ms:.4f} ms plain "
+          f"{p_ms:.4f} ms bound {b_ms:.6f} ms ({b_by}); longest group "
+          f"{chain} bundles: {cover_rec['ns_a_bundle_step']:.1f} ns a bundle "
+          "step")
+    del batch
+
+    dm, coefs, actives, reqs, coarse, max_req = pinned_rows
+    R = coefs.shape[0]
+    paths = torch.full((R,), 255, dtype=torch.uint8, device=dev)
+    ck, sk = fr.fused_rows(dm, coefs, actives, reqs, coarse, max_req,
+                           fused.bits_budget, paths=paths)
+    info = []
+    cp, sp = fr.fused_rows_plain(dm, coefs, actives, reqs, coarse, max_req,
+                                 info)
+    torch.cuda.synchronize()
+    check(torch.equal(ck, cp) and torch.equal(sk, sp),
+          "phase16e fused_rows: kernel != plain version at the pinned-gcd "
+          "1M rows")
+    err = float((ck - cp).abs().max())
+    took = paths.cpu().numpy().tolist()
+    check(took == [p for _c, p in fr.prefix_plans(info)],
+          f"phase16e fused_rows: paths {took}")
+    width = fr.dp_width(max_req, coarse) + 1
+    k_ms = cuda_ms(torch, lambda: fr.fused_rows(
+        dm, coefs, actives, reqs, coarse, max_req, fused.bits_budget), 2)
+    p_ms = cuda_ms(torch, lambda: fr.fused_rows_plain(
+        dm, coefs, actives, reqs, coarse, max_req), 1)
+    b_ms, b_by = rows_bound(dm, coefs, info)
+    rows_rec = {"shape": f"pinned-gcd 1M prescan: {R} rows, N={dm.n_items}, "
+                         f"B={dm.n_bundles}, width {width}",
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"phase16e fused_rows at the {rows_rec['shape']} (dp_global rows; "
+          f"max kept {max(r['kept'] for r in info)}, max core "
+          f"{max(r['core'] for r in info)}, max eff_res "
+          f"{max(r['eff_res'] for r in info)}; paths none/prefix/full "
+          f"{[took.count(p) for p in range(3)]}): counts and status bitwise "
+          f"the plain version's; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+          f"bound {b_ms:.6f} ms ({b_by})")
+    print(f"phase16 launches on the scale path: {dict(launches)}; took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": dict(launches), "cover_dp": cover_rec,
+            "fused_rows": rows_rec}
 
 
 if __name__ == "__main__":

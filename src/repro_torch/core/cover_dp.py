@@ -202,23 +202,23 @@ def cover_dp_plain(batch: CoverBatch, with_bits: bool = True,
     j = torch.arange(R + 1, dtype=torch.int64, device=dev)
     dp = torch.full((G, R + 1), inf, dtype=torch.float64, device=dev)
     dp[:, 0] = 0.0
-    steps = []
+    bits = (torch.empty((G, B, R + 1), dtype=torch.bool, device=dev)
+            if with_bits else None)
     for b in range(B):
         pb, cb = pods[:, b:b + 1], costs[:, b:b + 1]
         src = torch.gather(dp, 1, (j - pb).clamp(min=0))
         # 1 <= j < pb: the candidate is cb itself, as the host writes it
         cand = torch.where(j >= pb, src + cb, cb)
         cand[:, 0] = inf                                  # dp[0] pinned
-        bit = cand < dp
-        dp = torch.minimum(dp, cand)
         if with_bits:
-            steps.append(bit)
-    cols = torch.from_numpy(
-        np.arange(R + 1)[None, :] <= batch.targets[:, None]).to(dev)
-    dp_out = dp[cols]
+            torch.lt(cand, dp, out=bits[:, b])
+        dp = torch.minimum(dp, cand)
+    # each group's own block, sliced (a boolean mask over (G, B, R+1)
+    # would index through int64 coordinates, 24 bytes a bit)
+    widths = batch.targets + 1
+    dp_out = torch.cat([dp[g, :widths[g]] for g in range(G)]
+                       or [dp.new_zeros(0)])
     if not with_bits:
         return dp_out, None
-    if B == 0:
-        return dp_out, torch.zeros(0, dtype=torch.bool, device=dev)
-    bits = torch.stack(steps, dim=1)                      # (G, B, R+1)
-    return dp_out, bits[bmask[:, :, None] & cols[:, None, :]]
+    return dp_out, torch.cat([bits[g, :nb[g], :widths[g]].reshape(-1)
+                              for g in range(G)] or [bits.new_zeros(0)])

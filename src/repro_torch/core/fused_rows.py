@@ -212,19 +212,22 @@ def fused_rows(dm: DeviceMarket, coefs: torch.Tensor, actives: torch.Tensor,
     scores = (torch.empty(R, dtype=torch.float64, device=dev) if scoring
               else None)
     step = max(1, bits_budget // max(1, B * width_cap))
+    # one set of scratch for the largest slice, reused by every launch of
+    # the call (they run in order on one stream): a slice's bits are
+    # allocated once, never beside the previous slice's
+    n_max = min(step, R)
+    fs = torch.empty(n_max * 7 * B, dtype=torch.float64, device=dev)
+    is_ = torch.empty(n_max * 3 * B, dtype=torch.int32, device=dev)
+    keep = torch.empty(n_max * B, dtype=torch.uint8, device=dev)
+    bits = torch.empty(n_max * B * width_cap, dtype=torch.uint8, device=dev)
+    dp_gl = (None if dp_smem else
+             torch.empty(n_max * 2 * width_cap, dtype=torch.float64,
+                         device=dev))
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for lo in range(0, R, step):
             n = min(step, R - lo)
-            fs = torch.empty(n * 7 * B, dtype=torch.float64, device=dev)
-            is_ = torch.empty(n * 3 * B, dtype=torch.int32, device=dev)
-            keep = torch.empty(n * B, dtype=torch.uint8, device=dev)
-            bits = torch.empty(n * B * width_cap, dtype=torch.uint8,
-                               device=dev)
-            dp_gl = (None if dp_smem else
-                     torch.empty(n * 2 * width_cap, dtype=torch.float64,
-                                 device=dev))
             err = lib.fused_rows_launch(
                 dm.pods.data_ptr(), dm.bound.data_ptr(), dm.perf.data_ptr(),
                 dm.price.data_ptr(), dm.podsf.data_ptr(),
