@@ -132,7 +132,14 @@ system's real sizes and holds every result to the host:
    against a 1056-long cache) at full width and depth, counted on ``meta``,
    beside each step's warm median on the card (CUDA events a call), with
    the share ``step_s / measured``; the two kernel ops' counted costs equal
-   to ``attn_bound`` / ``scan_bound``; qwen2.5-14b's full-width decode_32k
+   to ``attn_bound`` / ``scan_bound``; each step's peak of live bytes
+   counted on ``meta`` (``StepCost.peak_bytes``) held within 2% + 64 MiB
+   of the caching allocator's peak of requested bytes for the same step
+   run on the card, after a warm-up call, beside ``max_memory_allocated``'s
+   rise: that prefill and decode step, one ``make_train_step`` step of
+   internlm2-1.8b at phase 14c's shape (24 layers, B 4 x S 1024, remat
+   "dots") and a falcon-mamba-7b prefill (B 4 x S 1024, 8 of 64 layers;
+   the ``selective_scan`` op's fake); qwen2.5-14b's full-width decode_32k
    cell counted on ``meta`` with no device or host memory of its size;
    (b) on a 1-rank NCCL group and ``make_local_mesh()`` with
    ``single_pod_rules(fsdp=True)``, ``attn_mode="auto"`` and
@@ -147,8 +154,8 @@ system's real sizes and holds every result to the host:
    ``serving_slo`` with the roofline profile, ``torch`` byte-equal to
    ``numpy``, ``cover_dp`` launched; (d) ``python -m
    repro_torch.launch.dryrun --arch internvl2-1b --shape decode_32k
-   --multi-pod`` in a subprocess: status ok on 512 fake ranks
-   ("phase15" lines);
+   --multi-pod`` in a subprocess: status ok on 512 fake ranks, its
+   ``memory_analysis`` and args + temp a device ("phase15" lines);
 16. the coarsening ladder at ``benchmarks/bench_scale.py``'s size (its
    market and demands, copied): 1,597 items, 6,606 bundles, ``pods_gcd``
    8, from 5,000 to 1,000,000 pods.  (a) At each scale every prescan α's
@@ -182,8 +189,8 @@ times are device times (``cuda_ms``: CUDA events around back-to-back
 calls queued behind a sleep kernel).  The line before the last is the
 kernel record (times, launches on the main paths, bounds; phase 14's
 training launches in ``launches_train`` and its gradient readings in
-``train``, phase 15's sharded and roofline-serving launches in
-``launches_cost``, phase 16's launches in ``launches_scale`` and its
+``train``, phase 15's held-step, sharded and roofline-serving launches
+in ``launches_cost``, phase 16's launches in ``launches_scale`` and its
 readings at the new widths in ``scale``); the last line
 is ``{"ok": true, "device": {...}}``.
 
@@ -665,7 +672,7 @@ def run(dev) -> dict:
             k["launches"] += k["launches_train"]
         if k["name"] in train:
             k["train"] = train[k["name"]]
-        if k["name"] in ("flash_attention", "cover_dp"):
+        if k["name"] in ("flash_attention", "mamba_scan", "cover_dp"):
             k["launches_cost"] = cost["launches"].get(k["name"], 0)
             k["launches"] += k["launches_cost"]
         if k["name"] in ("cover_dp", "fused_rows"):
@@ -2594,6 +2601,32 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+#: the bar of a counted peak (``StepCost.peak_bytes``) against the caching
+#: allocator's measured one: 2% of the measured peak plus 64 MiB, either way
+PEAK_REL, PEAK_ABS = 0.02, 64 * 2 ** 20
+
+
+def measured_peak(torch, dev, fn):
+    """``(requested, allocated)`` bytes of one call of ``fn`` after a warm-up
+    call (cuBLAS's workspace is then in the baseline): the caching
+    allocator's peak of requested bytes above those live before the call,
+    and ``max_memory_allocated``'s rise (its 512-byte rounding and unsplit
+    blocks included).  The call's result is alive when the peak is read,
+    as the count's outputs are."""
+    fn()
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_stats(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    after = torch.cuda.memory_stats(dev)
+    del out
+    return (after["requested_bytes.all.peak"]
+            - before["requested_bytes.all.current"],
+            after["allocated_bytes.all.peak"]
+            - before["allocated_bytes.all.current"])
+
+
 def run_cost(dev) -> dict:
     """Phase 15 on ``dev``: the cost model against the card (15a), the
     sharded step factories on a 1-rank mesh (15b), ServeSim's roofline mode
@@ -2676,6 +2709,77 @@ def run_cost(dev) -> dict:
               f"median {measured[what]:.4f} ms (CUDA events a call); share "
               f"step_s / measured {shares[what]:.4f}")
     print(f"phase15a counting both steps on meta took {count_s:.2f} s")
+
+    # the memory account: each step's peak live bytes counted on meta
+    # against the allocator's peak for the same step run on the card
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    held = []
+    flash_attention_cuda.launches = selective_scan_cuda.launches = 0
+
+    def hold_peak(what, c, fn):
+        req, alloc = measured_peak(torch, dev, fn)
+        gap = c.peak_bytes - req
+        ok = abs(gap) <= PEAK_REL * req + PEAK_ABS
+        held.append((what, ok))
+        print(f"phase15a peak {what} ({card}): counted on meta "
+              f"{c.peak_bytes} B (arguments {c.argument_bytes} B, outputs "
+              f"{c.output_bytes} B); measured requested peak {req} B "
+              f"(max_memory_allocated rise {alloc} B); gap counted - "
+              f"measured {gap} B ({gap / max(req, 1):+.4%}; bar 2% + 64 "
+              f"MiB = {PEAK_REL * req + PEAK_ABS:.0f} B): "
+              f"{'held' if ok else 'MISSED'}")
+
+    hold_peak(f"internlm2-1.8b prefill B {B} x S {S}", c_pre,
+              lambda: prefill_fn(params, prompt, cfg=cfg, max_len=max_len))
+    hold_peak(f"internlm2-1.8b decode B {B} against a {max_len}-long cache",
+              c_dec, lambda: decode_fn(params, caches, nxt, S, cfg=cfg))
+    ocfg = optim.OptConfig(warmup_steps=5, total_steps=1000)   # phase 14c's
+    tbatch = make_batch(cfg, DataConfig(seed=1), step=0, batch=4, seq=1024)
+    t0 = time.perf_counter()
+    ap = transformer.abstract_params(cfg)
+    c_train = roofline.analyze_step(make_train_step(cfg, ocfg), ap,
+                                    optim.init_opt_state(ap), tbatch)
+    t_train = time.perf_counter() - t0
+    tparams = init_params(cfg, gen.manual_seed(50), dev)
+    topt = optim.init_opt_state(tparams)
+    tstep = make_train_step(cfg, ocfg)
+    hold_peak(f"internlm2-1.8b make_train_step B 4 x S 1024, all "
+              f"{cfg.n_layers} layers, remat {cfg.remat_policy!r}", c_train,
+              lambda: tstep(tparams, topt, tbatch))
+    del tparams, topt, tstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("falcon-mamba-7b")
+    mcfg = dataclasses.replace(full, n_layers=8, layout=full.layout[:8])
+    mprompt = {"tokens": torch.from_numpy(rng.integers(
+        0, mcfg.vocab_size, (4, 1024))).to(dev)}
+    t0 = time.perf_counter()
+    c_mamba = roofline.analyze_step(
+        prefill_fn, transformer.abstract_params(mcfg),
+        {"tokens": abstract(4, 1024)}, cfg=mcfg, max_len=1024 + 16)
+    t_mamba = time.perf_counter() - t0
+    check(set(c_mamba.by_kernel) == {"selective_scan"},
+          f"phase15a falcon-mamba count: kernel ops {c_mamba.by_kernel}")
+    mparams = init_params(mcfg, gen.manual_seed(1), dev)
+    hold_peak("falcon-mamba-7b prefill B 4 x S 1024, 8 of 64 layers",
+              c_mamba, lambda: prefill_fn(mparams, mprompt, cfg=mcfg,
+                                          max_len=1024 + 16))
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_flash, n_scan = (flash_attention_cuda.launches,
+                       selective_scan_cuda.launches)
+    launches["flash_attention"] += n_flash
+    launches["mamba_scan"] += n_scan
+    check(n_flash > 0 and n_scan > 0,
+          f"phase15a peaks: launches flash {n_flash} scan {n_scan}")
+    print(f"phase15a peaks: counting the train step on meta took "
+          f"{t_train:.2f} s, the falcon-mamba prefill {t_mamba:.2f} s; "
+          f"launches flash_attention {n_flash}, mamba_scan {n_scan} (each "
+          f"step twice: warm-up and measured)")
+    check(all(ok for _, ok in held),
+          f"phase15a: counted peaks outside 2% + 64 MiB of the measured: "
+          f"{[what for what, ok in held if not ok]}")
 
     qa = abstract(8, 1024, 16, 128, dtype=torch.bfloat16)
     ka = abstract(8, 1024, 8, 128, dtype=torch.bfloat16)
@@ -2933,16 +3037,25 @@ def run_cost(dev) -> dict:
             rec = json.loads(f.readlines()[-1])
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    mem = rec.get("memory_analysis", {})
     check(rec["status"] == "ok" and rec["n_devices"] == 512
-          and rec["flops_per_device"] > 0, f"phase15d: record {rec}")
+          and rec["flops_per_device"] > 0
+          and set(mem) == {"temp_bytes", "argument_bytes", "output_bytes"}
+          and all(isinstance(v, int) and v >= 0 for v in mem.values()),
+          f"phase15d: record {rec}")
+    fits = rec["arg_bytes_per_device"] + mem["temp_bytes"]
     print("phase15d python -m repro_torch.launch.dryrun --arch internvl2-1b "
           "--shape decode_32k --multi-pod (512 fake ranks, counted on meta): "
           + json.dumps({k: rec[k] for k in (
               "status", "n_devices", "flops_per_device", "bytes_per_device",
               "wire_bytes_per_device", "collectives", "n_collectives",
               "compute_s", "memory_s", "collective_s", "bound", "step_s",
-              "arg_bytes_per_device", "model_flops_ratio", "count_s")})
-          + f" ({time.perf_counter() - t0:.1f} s with the subprocess)")
+              "arg_bytes_per_device", "memory_analysis", "model_flops_ratio",
+              "count_s")})
+          + f"; args+temp/dev {fits / 1e9:.4f} GB ("
+          + ("fits" if fits <= roofline.HBM_BYTES else "EXCEEDS")
+          + f" {roofline.HBM_BYTES / 1e9:.0f} GB) "
+          f"({time.perf_counter() - t0:.1f} s with the subprocess)")
     print(f"phase15 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": dict(launches),
             "shares": shares, "measured_ms": measured}

@@ -112,6 +112,8 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_flash_op.register_fake
 def _flash_fake(q, k, v, causal, q_offset, kv_len):
+    # allocates what the CUDA body does (o and lse, nothing else): the cost
+    # model's memory account reads these on ``meta``
     check_inputs(q, k, v)
     b, sq, h, _ = q.shape
     kvh = k.shape[2]

@@ -66,6 +66,8 @@ def _scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 @_scan_op.register_fake
 def _scan_fake(x, dt, A, Bmat, Cmat, D, h0):
+    # allocates what the CUDA body does (y and h_final, nothing else): the
+    # cost model's memory account reads these on ``meta``
     _check_shapes(x, dt, A, Bmat, Cmat, D, h0)
     b, _, di = x.shape
     return (torch.empty_like(x),

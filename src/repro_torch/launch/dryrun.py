@@ -5,20 +5,30 @@ For each cell this starts a fake process group (``FakeStore``, backend
 ``"fake"``) of 256 or 512 ranks, builds the production mesh (16×16
 single-pod, 2×16×16 multi-pod) on it, lays abstract (``meta``) DTensor
 parameters, optimizer state, batch and cache out on it under the cell's
-pspecs, runs the sharded step (train_step / prefill / decode per the
+pspecs (each rank's shard a storage of its own, as the step finds them at
+rest), runs the sharded step (train_step / prefill / decode per the
 shape's kind) once under :func:`repro_torch.roofline.analyze_step` — the
-per-device FLOPs, bytes and collective wire bytes of rank 0, with nothing
-of the model's size allocated — and tears the group down.  It records:
+per-device FLOPs, bytes, collective wire bytes and live device bytes of
+rank 0, with nothing of the model's size allocated — and tears the group
+down.  It records:
 
-  * the static per-device argument bytes (fits-check against
-    ``roofline.HBM_BYTES``, one H100's 80 GB);
+  * the static per-device argument bytes, the reference's arithmetic;
+  * ``memory_analysis``, with the keys of XLA's ``memory_analysis()`` in
+    the reference's record, counted on ``meta``: ``argument_bytes`` (the
+    distinct storages of the laid-out arguments), ``output_bytes`` (the
+    storages of the return value that the step created) and
+    ``temp_bytes``, the step's peak of live bytes *outputs included* (XLA
+    leaves its outputs out), so that ``arg_bytes_per_device + temp_bytes``
+    is the counted peak of one device: the fit check against
+    ``roofline.HBM_BYTES``, one H100's 80 GB, as the reference's
+    args + temp;
   * every ``Roofline.as_dict()`` term at the H100 constants;
   * the collective wire bytes by op and their count.
 
-The reference also records XLA's ``memory_analysis()`` and
-``cost_analysis()``; a torch program has no compiled artifact, so those
-keys (``memory_analysis``, ``xla_cost_flops``, ``xla_cost_bytes``) are left
-out, and ``compile_s`` is ``count_s``, the seconds of the counting run.
+The reference also records XLA's ``cost_analysis()``; a torch program has
+no compiled artifact, so ``xla_cost_flops`` and ``xla_cost_bytes`` are
+left out.  ``count_s`` is the seconds of the counting run, and the
+reference's ``compile_s`` holds the same seconds.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-14b --shape train_4k
@@ -113,6 +123,27 @@ def arg_bytes_per_device(cfg, shape, rules: sharding.MeshRules,
     return params + cache
 
 
+def _at_rest(cfg, shape, rules: sharding.MeshRules, mesh, bpspecs, args):
+    """The cell's arguments laid out on ``mesh`` as its step lays them out
+    (parameters in place), so that the count meets each device's shards
+    and the step's own layout calls find nothing to move."""
+    pspecs = transformer.param_pspecs(cfg, rules)
+    params, rest = args[0], args[1:]
+    transformer.distribute_params(params, pspecs, mesh)
+    if shape.kind == "train":
+        opt, batch = rest
+        return (params, sharding.distribute_tree(
+            opt, {"m": pspecs, "v": pspecs, "step": sharding.P()}, mesh),
+            sharding.distribute_tree(batch, bpspecs, mesh))
+    if shape.kind == "prefill":
+        return params, sharding.distribute_tree(rest[0], bpspecs, mesh)
+    cache, batch, pos = rest
+    specs = transformer.cache_pspecs(cfg, rules,
+                                     long_context=shape.name == "long_500k")
+    return (params, sharding.distribute_tree(cache, specs, mesh),
+            sharding.distribute_tree(batch, bpspecs, mesh), pos)
+
+
 def _fake_group(world: int):
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -194,6 +225,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 # the last slot: a full cache
                 args = (aparams, acache, abatch, shape.seq_len - 1)
             arg_bytes = arg_bytes_per_device(cfg, shape, rules, mesh)
+            args = _at_rest(cfg, shape, rules, mesh, bpspecs, args)
             t_lower = time.perf_counter() - t0
 
             t0 = time.perf_counter()
@@ -210,23 +242,28 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "n_devices": n_dev,
         "lower_s": round(t_lower, 2),
         "count_s": round(t_count, 2),
+        "compile_s": round(t_count, 2),
         "arg_bytes_per_device": arg_bytes,
+        "memory_analysis": {"temp_bytes": hc.peak_bytes,
+                            "argument_bytes": hc.argument_bytes,
+                            "output_bytes": hc.output_bytes},
         "collectives": {k: round(v) for k, v in hc.wire_by_op.items()},
         "n_collectives": hc.n_collectives,
         "unknown_trip_counts": hc.unknown_trip_counts,
         **rl.as_dict(),
     })
     if verbose:
-        fits = arg_bytes
+        fits = arg_bytes + hc.peak_bytes
         print(f"[dryrun] {arch} × {shape_name} × {rec['mesh']}: "
               f"count {t_count:.1f}s  "
               f"flops/dev {rl.flops_per_device:.3e}  "
               f"bytes/dev {rl.bytes_per_device:.3e}  "
               f"wire/dev {rl.wire_bytes_per_device:.3e}  "
               f"bound={rl.bound}  frac={rl.roofline_fraction:.3f}  "
-              f"args/dev {fits / 1e9:.2f} GB "
+              f"args+temp/dev {fits / 1e9:.2f} GB "
               f"({'fits' if fits <= roofline.HBM_BYTES else 'EXCEEDS'} "
               f"{roofline.HBM_BYTES / 1e9:.0f} GB)")
+        print(f"[dryrun]   memory_analysis: {rec['memory_analysis']}")
         print(f"[dryrun]   collectives: {rec['collectives']} "
               f"({hc.n_collectives} ops)")
     return rec

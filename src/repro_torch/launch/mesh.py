@@ -11,7 +11,8 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = None):
     Multi-pod: 2 pods = 512 devices (2,16,16) over ("pod","data","model").
     Built on the process group the caller set up (its world size must be
     256 or 512; the dry-run's is a fake group); ``device_type`` defaults to
-    the card when there is one."""
+    the card, and raises when there is none (pass ``"cpu"`` for a mesh on
+    the CPU)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = (2, 16, 16) if multi_pod else (16, 16)
@@ -21,7 +22,8 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = None):
 
 
 def make_local_mesh(model_parallel: int = 1, device_type: str = None):
-    """Mesh over the caller's process group (one H100: ``(1, 1)``)."""
+    """Mesh over the caller's process group (one H100: ``(1, 1)``);
+    ``device_type`` as in :func:`make_production_mesh`."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -35,4 +37,7 @@ def make_local_mesh(model_parallel: int = 1, device_type: str = None):
 
 
 def _device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device for the mesh; pass "
+                           "device_type='cpu' for a mesh on the CPU")
+    return "cuda"

@@ -37,6 +37,18 @@ The two model kernels reach the counter as one op each
 their own cost (:func:`attn_cost`, :func:`scan_cost`), as the reference's
 walker meets a custom call.
 
+The same run keeps the step's memory account, the counterpart of XLA's
+``memory_analysis()``.  Every storage that an op creates on the device
+(a counted aten op, a kernel op's fake, a collective's output; views,
+in-place and ``out=`` ops create none) is counted once, by its identity,
+when it is created, and given back when it dies (a weakref callback on the
+storage: no rescan of the live set).  ``argument_bytes`` is the distinct
+storages the arguments reach, ``peak_bytes`` the most bytes of the step's
+own storages alive at once (outputs included), ``output_bytes`` the
+storages of the return value that the step created.  Scratch that an op
+takes inside its CUDA implementation (cuBLAS workspace, cub temporaries of
+``sort`` / ``cumsum``) exists only on the card and is not in the count.
+
 The constants are the H100 SXM data sheet's (dense, no sparsity, at the
 700 W power limit).
 """
@@ -44,7 +56,9 @@ The constants are the H100 SXM data sheet's (dense, no sparsity, at the
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import functools
+import weakref
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -170,6 +184,13 @@ class StepCost:
     #: FLOPs and bytes of the kernel ops, by op name (a part of the totals)
     by_kernel: Dict[str, Tuple[float, float]] = dataclasses.field(
         default_factory=dict)
+    #: bytes of the distinct device storages the arguments reach (local
+    #: shards of DTensors, parameters and buffers of modules)
+    argument_bytes: int = 0
+    #: most bytes of the storages the step created that were alive at once
+    peak_bytes: int = 0
+    #: bytes of the storages of the return value that the step created
+    output_bytes: int = 0
 
 
 _aten = torch.ops.aten
@@ -205,12 +226,42 @@ _COLLECTIVES = {
 }
 
 
+#: ops that hand their input on (funcol's autograd wrapper of a collective's
+#: result) but whose ``meta`` kernel copies it: counted as an alias
+_PASS_THROUGH = {("_c10d_functional", "_wrap_tensor_autograd")}
+
+
 def _nbytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
 
 def _is_view(func) -> bool:
+    """True for an op whose result aliases an input (a view, an in-place or
+    an ``out=`` op)."""
     return any(r.alias_info is not None for r in func._schema.returns)
+
+
+def _device_tensors(tree) -> Iterator[torch.Tensor]:
+    """The ``meta`` tensors of ``tree``: its leaves, the parameters and
+    buffers of its modules, each DTensor's local tensor."""
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.nn.Module):
+            yield from _device_tensors(list(t.parameters())
+                                       + list(t.buffers()))
+            continue
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+        if isinstance(t, torch.Tensor) and t.is_meta:
+            yield t
+
+
+def _storages(tree) -> Dict[int, int]:
+    """``{storage id: bytes}`` of the distinct storages ``tree`` reaches."""
+    out = {}
+    for t in _device_tensors(tree):
+        st = t.untyped_storage()
+        out[st._cdata] = st.nbytes()
+    return out
 
 
 def _group_size(func, args, kwargs, n_default: int) -> int:
@@ -245,21 +296,52 @@ class _CostMode(TorchDispatchMode):
     the global-shape ops DTensor runs under its own ``FakeTensorMode`` to
     propagate shapes are not the step's and are skipped."""
 
-    def __init__(self, n_devices: int):
+    def __init__(self, n_devices: int, arguments: Dict[int, int]):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
         self._flops = {op: flop_registry[op] for op in _FLOP_OPS}
         self.n_devices = n_devices
-        self.cost = StepCost()
+        self.cost = StepCost(argument_bytes=sum(arguments.values()))
+        self._arguments = arguments
+        #: the step's live storages: id -> (weakref to the storage, bytes)
+        self.live: Dict[int, Tuple[weakref.ref, int]] = {}
+        self._now = 0
+
+    def _created(self, out) -> None:
+        """Counts the storages of ``out`` that no argument and no earlier op
+        holds, and a callback on each that gives its bytes back when it
+        dies."""
+        for t in tree_leaves(out):
+            if not (isinstance(t, torch.Tensor) and t.is_meta):
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self.live or key in self._arguments:
+                continue
+            n = st.nbytes()
+            self.live[key] = (weakref.ref(st, functools.partial(
+                self._died, key)), n)
+            self._now += n
+            if self._now > self.cost.peak_bytes:
+                self.cost.peak_bytes = self._now
+
+    def _died(self, key: int, _ref) -> None:
+        entry = self.live.pop(key, None)
+        if entry is not None:
+            self._now -= entry[1]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
+        if (func.namespace, func._opname) in _PASS_THROUGH:
+            return _aten.alias.default(args[0])
         out = func(*args, **kwargs)
         if any(isinstance(m, FakeTensorMode)
                for m in _get_current_dispatch_mode_stack()):
             return out
+        if not _is_view(func):
+            self._created(out)
         c = self.cost
         ns, op = func.namespace, func._opname
         if ns == "repro_torch":
@@ -311,9 +393,14 @@ def analyze_step(fn, *args, n_devices: int = 1, **kwargs) -> StepCost:
     none."""
     for a in list(args) + list(kwargs.values()):
         _check_abstract(a)
-    mode = _CostMode(n_devices)
-    with mode:
-        fn(*args, **kwargs)
+    mode = _CostMode(n_devices, _storages((args, kwargs)))
+    try:
+        with mode:
+            out = fn(*args, **kwargs)
+        mode.cost.output_bytes = sum(
+            n for key, n in _storages(out).items() if key in mode.live)
+    finally:
+        mode.live.clear()          # no callback outlives the count
     return mode.cost
 
 

@@ -375,7 +375,8 @@ def distribute(t, spec: Sequence, mesh):
     """``t`` as a DTensor on ``mesh`` under ``spec``: a DTensor is
     redistributed; a plain tensor (the global value, the same on every
     rank) becomes this rank's slice of it, with no collective (a ``meta``
-    tensor gives a ``meta`` local tensor)."""
+    tensor gives a ``meta`` local tensor of its own storage, the shard's
+    size, as a rank holds it)."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
 
@@ -389,8 +390,7 @@ def distribute(t, spec: Sequence, mesh):
     shape, offset = compute_local_shape_and_global_offset(
         t.shape, mesh, placements)
     local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
-    if not local.is_meta:
-        local = local.contiguous()
+    local = torch.empty_like(local) if local.is_meta else local.contiguous()
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=t.shape, stride=t.stride())
 

@@ -104,10 +104,11 @@ def test_arg_bytes_per_device_match_reference(arch, shape_name, multi_pod):
     assert got > 0
 
 
-def test_dryrun_cell_subprocess(tmp_path):
-    """One real (arch × shape × multi-pod mesh) cell counts on the 2×16×16
-    = 512-rank production mesh (a fake process group)."""
-    out_file = tmp_path / "dryrun.jsonl"
+@pytest.fixture(scope="module")
+def cell_record(tmp_path_factory):
+    """The record of ``python -m repro_torch.launch.dryrun --arch
+    internvl2-1b --shape decode_32k --multi-pod``, run once."""
+    out_file = tmp_path_factory.mktemp("dryrun") / "dryrun.jsonl"
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -115,20 +116,51 @@ def test_dryrun_cell_subprocess(tmp_path):
          "--out", str(out_file)],
         env=env, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
-    rec = json.loads(out_file.read_text().splitlines()[-1])
+    return json.loads(out_file.read_text().splitlines()[-1])
+
+
+def test_dryrun_cell_subprocess(cell_record):
+    """One real (arch × shape × multi-pod mesh) cell counts on the 2×16×16
+    = 512-rank production mesh (a fake process group), with the
+    reference's ``memory_analysis`` keys counted on ``meta`` and no XLA
+    cost keys."""
+    rec = cell_record
     assert rec["status"] == "ok"
     assert rec["n_devices"] == 512
     assert rec["flops_per_device"] > 0
     assert rec["arg_bytes_per_device"] == _reference_arg_bytes(
         "internvl2-1b", "decode_32k", True)
     assert rec["unknown_trip_counts"] == 0
-    for key in ("memory_analysis", "xla_cost_flops", "xla_cost_bytes"):
+    mem = rec["memory_analysis"]
+    assert set(mem) == {"temp_bytes", "argument_bytes", "output_bytes"}
+    assert all(isinstance(v, int) and v >= 0 for v in mem.values())
+    # the laid-out arguments: the parameters and cache of the reference's
+    # arithmetic, and the batch's 128 tokens over the 2 x 16 pod x data
+    # ranks (4 int32 on a device)
+    assert mem["argument_bytes"] == rec["arg_bytes_per_device"] + 4 * 4
+    assert mem["temp_bytes"] >= mem["output_bytes"] > 0
+    for key in ("xla_cost_flops", "xla_cost_bytes"):
         assert key not in rec
     for key in ("compute_s", "memory_s", "collective_s", "bound", "step_s",
                 "roofline_fraction", "model_flops_global",
                 "model_flops_ratio", "mfu_bound", "bytes_per_device",
                 "wire_bytes_per_device", "collectives", "n_collectives"):
         assert key in rec, key
+
+
+def test_make_tables_renders_the_port_record(cell_record):
+    """``benchmarks.make_tables.dryrun_table`` reads the port's record:
+    its GB column is ``(arg_bytes_per_device + temp_bytes) / 1e9``."""
+    from benchmarks.make_tables import dryrun_table, roofline_table
+
+    rec = cell_record
+    row = dryrun_table([rec]).splitlines()[-1].split("|")
+    gb = (rec["arg_bytes_per_device"]
+          + rec["memory_analysis"]["temp_bytes"]) / 1e9
+    assert row[1:5] == [" internvl2-1b ", " decode_32k ", " 2x16x16 ",
+                        " ok "]
+    assert row[6].strip() == f"{gb:.1f}"
+    assert "internvl2-1b" in roofline_table([rec])
 
 
 def test_skipped_and_failed_cells_are_recorded(tmp_path, monkeypatch):

@@ -236,3 +236,120 @@ def test_full_width_decode_cell_allocates_nothing_of_its_size():
     rl = roofline.roofline_of(c)
     assert rl.bound == "memory" and c.bytes > nbytes * 0.9
     assert np.isfinite(rl.step_s) and c.flops > 0
+
+
+# ---------------------------------------------------------------------------
+# The memory account: argument, peak and output bytes, worked out by hand
+# ---------------------------------------------------------------------------
+
+def test_chain_of_two_elementwise_ops_peaks_at_two_results():
+    """``(x * 2) + 1`` on 1000 float32: both results (4000 B each) are
+    alive when the second is made; the return value is the second."""
+    c = roofline.analyze_step(lambda x: (x * 2) + 1, meta(1000))
+    assert (c.argument_bytes, c.peak_bytes, c.output_bytes) == \
+        (4000, 8000, 4000)
+
+
+def test_in_place_op_and_view_add_nothing():
+    """An in-place op and a view write into / alias the argument's
+    storage: nothing allocated, and an output that aliases an argument
+    counts 0."""
+    def f(x):
+        x.add_(1)
+        return x.view(10, 100)
+    c = roofline.analyze_step(f, meta(1000))
+    assert (c.argument_bytes, c.peak_bytes, c.output_bytes) == (4000, 0, 0)
+
+
+def test_loop_that_allocates_and_drops_peaks_at_one_iteration():
+    def f(x):
+        for _ in range(5):
+            y = x * 2                          # 4000 B, dropped each trip
+            del y
+    c = roofline.analyze_step(f, meta(1000))
+    assert (c.peak_bytes, c.output_bytes) == (4000, 0)
+
+
+def test_saved_tensors_and_gradients_are_counted():
+    """``a2 = 2a``, ``y = a2 @ b``, ``loss = sum(y)`` and
+    ``autograd.grad(loss, [a, b])`` with a (64, 32) and b (32, 16) float32:
+    the forward makes a2 (8192 B, saved by the matmul for b's gradient,
+    so it outlives ``del``), y (4096 B, not saved: freed) and loss (4 B).
+    The backward makes the ones of loss's gradient (4 B; sum's backward
+    expands it, a view), then in the matmul's node a2's gradient (8192 B)
+    and b's (2048 B) while a2 is still saved: the peak, 4 + 8192 + 4 + 8192
+    + 2048 = 18440 B.  The multiply's node then makes a's gradient
+    (8192 B) after a2 and the ones are released.  The outputs are the two
+    gradients, 8192 + 2048 B."""
+    def f(a, b):
+        a.requires_grad_(True)
+        b.requires_grad_(True)
+        with torch.enable_grad():
+            a2 = a * 2
+            y = a2 @ b
+            loss = y.sum()
+            del a2, y
+            return torch.autograd.grad(loss, [a, b])
+    c = roofline.analyze_step(f, meta(64, 32), meta(32, 16))
+    assert (c.argument_bytes, c.peak_bytes, c.output_bytes) == \
+        (8192 + 2048, 18440, 10240)
+
+
+def test_attention_fake_allocates_o_and_lse():
+    """The op's fake allocates what its CUDA body does: o like q (bf16
+    2 x 128 x 8 x 64) and lse (2, 128, 4, 2) float32.  k and v are one
+    tensor here: its storage is an argument once."""
+    q = meta(2, 128, 8, 64, dtype=torch.bfloat16)
+    kv = meta(2, 128, 4, 64, dtype=torch.bfloat16)
+    c = roofline.analyze_step(torch.ops.repro_torch.flash_attention, q, kv,
+                              kv, True, 0, None)
+    o, lse = 2 * 128 * 8 * 64 * 2, 2 * 128 * 4 * 2 * 4
+    assert c.argument_bytes == o + 2 * 128 * 4 * 64 * 2
+    assert (c.peak_bytes, c.output_bytes) == (o + lse, o + lse)
+
+
+def test_scan_fake_allocates_y_and_h_final():
+    """y like x (bf16 2 x 100 x 32) and h_final (2, 32, 16) float32."""
+    x = meta(2, 100, 32, dtype=torch.bfloat16)
+    bc = meta(2, 100, 16, dtype=torch.bfloat16)
+    c = roofline.analyze_step(torch.ops.repro_torch.selective_scan, x, x,
+                              meta(32, 16), bc, bc, meta(32), None)
+    y, h = 2 * 100 * 32 * 2, 2 * 32 * 16 * 4
+    assert (c.peak_bytes, c.output_bytes) == (y + h, y + h)
+
+
+def test_dtensor_matmul_counts_the_local_shard(fake_group):
+    """x (128, 64) float32 split over 16 ranks (a local 8 x 64 shard,
+    2048 B) times a replicated w (64, 32; 8192 B): the local product is
+    (8, 32), 1024 B.  Gathered to every rank, the all-gather's result
+    (128, 32; 16384 B) is a new storage beside the local product, and its
+    DTensor wrapper is none."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = init_device_mesh("cpu", (16,), mesh_dim_names=("model",))
+    x = DTensor.from_local(meta(8, 64), mesh, [Shard(0)], run_check=False)
+    w = DTensor.from_local(meta(64, 32), mesh, [Replicate()],
+                           run_check=False)
+    c = roofline.analyze_step(lambda a, b: a @ b, x, w)
+    assert (c.argument_bytes, c.peak_bytes, c.output_bytes) == \
+        (2048 + 8192, 1024, 1024)
+    c = roofline.analyze_step(
+        lambda a, b: (a @ b).redistribute(mesh, [Replicate()]), x, w)
+    assert c.n_collectives == 1
+    assert (c.peak_bytes, c.output_bytes) == (1024 + 16384, 16384)
+
+
+def test_argument_bytes_count_a_shared_leaf_once():
+    """Two linear layers that share one (32, 64) float32 weight (8192 B),
+    each with its own bias (128 B), and a buffer (128 B); the module and
+    its weight passed again as an argument of their own."""
+    lin1 = torch.nn.Linear(64, 32, device=META)
+    lin2 = torch.nn.Linear(64, 32, device=META)
+    lin2.weight = lin1.weight
+    mod = torch.nn.Sequential(lin1, lin2)
+    mod.register_buffer("scale", meta(32))
+    c = roofline.analyze_step(lambda m, w, x: m[1](x), mod, lin1.weight,
+                              meta(4, 64))
+    assert c.argument_bytes == 8192 + 128 + 128 + 128 + 4 * 64 * 4
+    assert c.output_bytes == 4 * 32 * 4

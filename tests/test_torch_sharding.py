@@ -43,7 +43,7 @@ from repro.train.loop import make_train_step as ref_make_train_step
 from repro_torch import optim, serving, sharding
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.data.pipeline import batch_pspecs
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models import moe, transformer
 from repro_torch.models.convert import _layer_source, params_from_reference
 from repro_torch.train.loop import make_sharded_train_step, make_train_step
@@ -226,6 +226,22 @@ def mesh():
         m = make_local_mesh(device_type="cpu")
         assert m.mesh_dim_names == ("data", "model") and m.shape == (1, 1)
         yield m
+    finally:
+        dist.destroy_process_group()
+
+
+def test_meshes_raise_without_a_card(monkeypatch):
+    """With no card and no ``device_type`` the meshes raise rather than
+    build a mesh on the CPU; ``device_type="cpu"`` still builds one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            make_local_mesh()
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            make_production_mesh()
+        assert make_local_mesh(device_type="cpu").device_type == "cpu"
     finally:
         dist.destroy_process_group()
 
