@@ -182,7 +182,30 @@ system's real sizes and holds every result to the host:
    at the widest dispatch of the exact 1 M rows and ``fused_rows`` at the
    pinned-gcd 1 M prescan rows against their plain versions (and
    ``cover_dp`` against the host) bitwise, timed, with their bounds
-   ("phase16" lines).
+   ("phase16" lines);
+17. the reference's other model families served at full width through
+   ``launch.serve.serve`` (8 requests, batch 4, prompt 1024 — internvl2
+   1000 after its 256 vision embeddings — 16 new tokens, bf16 compute,
+   weights drawn on the card): stablelm-3b (hd 80, partial rotary,
+   layernorm), qwen2.5-14b (GQA 40/8, qkv bias) and musicgen-large (4
+   codebooks in and out) at every layer in float32, internvl2-1b (the
+   vision prefix, GQA 14/2, tied embeddings), jamba-1.5-large's
+   ``layout[:5]`` (four Mamba layers, two with MoE, and the attention
+   layer: both kernels in one forward, a cache of KV and SSM state) and
+   kimi-k2's ``layout[:2]`` (the dense layer and one layer of 384 experts
+   with a shared expert, hd 112) with bfloat16 parameters; every request
+   served, every logit finite, launches = attention layers x batches and
+   Mamba layers x batches, peak device memory within the card, a
+   ``torch.profiler`` breakdown of one prefill and one decode step;
+   jamba's and kimi's bf16 prefill kernels vs plain versions reported; a
+   float32 cut of each family held to the plain versions (prefill B 2 x
+   S 256 + 4 greedy decode steps, logits within 2e-4, tokens equal, the
+   plain run launching nothing); ``flash_attention`` at each family's
+   prefill shape (hd 64 / 80 / 112 / 128, GQA 1 / 5 / 7 / 8, S 1024 and
+   1256) held to its plain version with its columns past hd never
+   written, timed against SDPA in turns, and ``mamba_scan`` at jamba's
+   prefill (B 4, S 1024, di 16,384) against its plain version
+   ("phase17" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -191,7 +214,9 @@ kernel record (times, launches on the main paths, bounds; phase 14's
 training launches in ``launches_train`` and its gradient readings in
 ``train``, phase 15's held-step, sharded and roofline-serving launches
 in ``launches_cost``, phase 16's launches in ``launches_scale`` and its
-readings at the new widths in ``scale``); the last line
+readings at the new widths in ``scale``, phase 17's serve launches in
+``launches_families`` and its readings at the families' shapes in
+``families``); the last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -414,11 +439,11 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-16 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-17 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
     13 in :func:`run_moe`, 14 in :func:`run_train`, 15 in
-    :func:`run_cost`, 16 in :func:`run_scale`); returns the kernel
-    record."""
+    :func:`run_cost`, 16 in :func:`run_scale`, 17 in
+    :func:`run_families`); returns the kernel record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -663,6 +688,7 @@ def run(dev) -> dict:
     train = run_train(dev)
     cost = run_cost(dev)
     scale = run_scale(dev)
+    families = run_families(dev)
     for k in kernels:
         k["launches_sim"] = sim.get(k["name"], 0)
         k["launches_policies"] = policies.get(k["name"], 0)
@@ -679,6 +705,10 @@ def run(dev) -> dict:
             k["launches_scale"] = scale["launches"].get(k["name"], 0)
             k["launches"] += k["launches_scale"]
             k["scale"] = scale[k["name"]]
+        if k["name"] in ("flash_attention", "mamba_scan"):
+            k["launches_families"] = families["launches"][k["name"]]
+            k["launches"] += k["launches_families"]
+            k["families"] = families[k["name"]]
         if k["name"] == "flash_attention":
             k["launches_moe"] = moe["launches"]
             k["launches"] += moe["launches"]
@@ -1175,25 +1205,96 @@ def traced(torch, fn):
     return wall, sum(by_name.values()) / 1e3, [(k, v / 1e3) for k, v in top]
 
 
+def prompt_len(cfg, prompt) -> int:
+    """The positions a prefill of ``prompt`` fills: its tokens (or audio
+    frames), after the vision prefix of a VLM prompt."""
+    if cfg.input_mode == "audio_codes":
+        return prompt["codes"].shape[2]
+    vp = cfg.vision_prefix if "vision_embeds" in prompt else 0
+    return vp + prompt["tokens"].shape[1]
+
+
+def step_input(cfg, nxt):
+    """A decode step's input from the greedy tokens ``nxt`` ``(B, 1)``
+    (``(B, 1, K)`` for audio codes)."""
+    if cfg.input_mode == "audio_codes":
+        return {"codes": nxt.transpose(1, 2)}
+    return {"tokens": nxt}
+
+
 def greedy(cfg, params, prompt, steps):
     """Prefill ``prompt`` and take ``steps`` greedy decode steps: (the
-    logits of every step, the tokens ``(B, steps + 1)``)."""
+    logits of every step, the tokens ``(B, steps + 1)``, or ``(B, steps +
+    1, K)`` for audio codes)."""
     import torch
 
     from repro_torch.serving import decode_fn, prefill_fn
 
-    logits, caches = prefill_fn(params, prompt, cfg=cfg,
-                                max_len=prompt["tokens"].shape[1] + steps)
+    n = prompt_len(cfg, prompt)
+    logits, caches = prefill_fn(params, prompt, cfg=cfg, max_len=n + steps)
     outs = [logits]
     nxt = torch.argmax(logits[:, -1:], dim=-1)
     toks = [nxt]
     for i in range(steps):
-        logits, caches = decode_fn(params, caches, {"tokens": nxt},
-                                   prompt["tokens"].shape[1] + i, cfg=cfg)
+        logits, caches = decode_fn(params, caches, step_input(cfg, nxt),
+                                   n + i, cfg=cfg)
         outs.append(logits)
         nxt = torch.argmax(logits[:, -1:], dim=-1)
         toks.append(nxt)
     return outs, torch.cat(toks, dim=1)
+
+
+def attn_in_turns(torch, q, k, v):
+    """``(kernel ms, SDPA ms, plain ms, turns)`` of causal attention over
+    q ``(B,S,H,hd)`` and k, v ``(B,S,KV,hd)``: the kernel and
+    ``scaled_dot_product_attention`` (``is_causal``, ``enable_gqa``) in
+    turns (kernel, SDPA, SDPA, kernel; the medians of each), then the
+    plain version (``flash_fwd_chunked``, one chunk of the sequence)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    s = q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    timed = {"kernel": lambda: flash_attention_cuda(q, k, v),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True)}
+    turns = {"kernel": [], "sdpa": []}
+    for who in ("kernel", "sdpa", "sdpa", "kernel"):
+        turns[who].append(cuda_ms(torch, timed[who], 20))
+    p_ms = cuda_ms(torch, lambda: ref.flash_fwd_chunked(
+        q, k, v, q_chunk=s, kv_chunk=s), 5)
+    return median(turns["kernel"]), median(turns["sdpa"]), p_ms, turns
+
+
+def trace_steps(cfg, params, prompt, tag):
+    """Where one prefill of ``prompt`` and one decode step after it spend
+    device time, by kernel (``traced``): prints a "``tag`` prefill" and a
+    "``tag`` decode step" line, each with the port's own kernels."""
+    import torch
+
+    from repro_torch.serving import decode_fn, prefill_fn
+
+    n = prompt_len(cfg, prompt)
+    _, caches = prefill_fn(params, prompt, cfg=cfg, max_len=n + 2)
+    first = ({"codes": prompt["codes"][:, :, :1]}
+             if cfg.input_mode == "audio_codes"
+             else {"tokens": prompt["tokens"][:, :1]})
+    decode_fn(params, caches, first, n, cfg=cfg)              # warm
+    b = next(iter(prompt.values())).shape[0]
+    for what, fn in (("prefill", lambda: prefill_fn(
+            params, prompt, cfg=cfg, max_len=n + 2)),
+                     ("decode step", lambda: decode_fn(
+                         params, caches, first, n + 1, cfg=cfg))):
+        wall, busy, top = traced(torch, fn)
+        ours = [(k, v) for k, v in top if "flash_" in k or "scan_kernel" in k]
+        print(f"{tag} {what} (B {b}, S {n}): traced wall {wall:.3f} ms, "
+              f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.4f});"
+              " by kernel: " + "; ".join(f"{k} {v:.3f} ms"
+                                          for k, v in top[:6])
+              + "; the port's kernels: " + ("; ".join(
+                  f"{k} {v:.3f} ms" for k, v in ours) or "none"))
 
 
 def card_line() -> str:
@@ -1210,7 +1311,6 @@ def run_serving(dev) -> list:
     import dataclasses
 
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
@@ -1221,7 +1321,7 @@ def run_serving(dev) -> list:
     from repro_torch.launch.serve import serve
     from repro_torch.models import count_params, init_params
     from repro_torch.roofline import attn_bound, attn_flops, scan_bound
-    from repro_torch.serving import decode_fn, prefill_fn
+    from repro_torch.serving import prefill_fn
 
     scan_variant = "4 lanes a channel, ex2.approx, cp.async ring"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1294,16 +1394,7 @@ def run_serving(dev) -> list:
     q, k, v = qkv(*shape, torch.bfloat16)
     a_err, a_lse = hold_attn("internlm2 prefill", ATTN_TOL["bfloat16"], q, k,
                              v, 1024, 1024, causal=True)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    timed = {"kernel": lambda: flash_attention_cuda(q, k, v),
-             "sdpa": lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True)}
-    turns = {"kernel": [], "sdpa": []}
-    for who in ("kernel", "sdpa", "sdpa", "kernel"):
-        turns[who].append(cuda_ms(torch, timed[who], 20))
-    a_ms, al_ms = median(turns["kernel"]), median(turns["sdpa"])
-    ap_ms = cuda_ms(torch, lambda: ref.flash_fwd_chunked(
-        q, k, v, q_chunk=1024, kv_chunk=1024), 5)
+    a_ms, al_ms, ap_ms, turns = attn_in_turns(torch, q, k, v)
     ab_ms, ab_by = attn_bound(*shape, elem=2)
     tflop = attn_flops(*shape) / 1e12
     print(f"phase8 flash_attention ({VARIANTS[q.dtype]}) at the internlm2-1.8b"
@@ -1315,7 +1406,7 @@ def run_serving(dev) -> list:
           f"TFLOP/s {ab_ms / al_ms:.2%} of bound; kernel / SDPA "
           f"{a_ms / al_ms:.3f}; plain {ap_ms:.4f} ms; bound {ab_ms:.6f} ms "
           f"({ab_by})")
-    del q, k, v, qt, kt, vt
+    del q, k, v
 
     def scan_inputs(b, s, di, n, dtype, model_like=False, with_h0=False):
         if model_like:      # as falcon-mamba's layers feed it at init
@@ -1421,26 +1512,8 @@ def run_serving(dev) -> list:
         torch.cuda.empty_cache()
 
     def breakdown(cfg, params, label, B, S):
-        """Device time of one prefill and one decode step of a batch, by
-        kernel (torch.profiler)."""
-        prompt = {"tokens": torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (B, S))).to(dev)}
-        _, caches = prefill_fn(params, prompt, cfg=cfg, max_len=S + 2)
-        nxt = {"tokens": prompt["tokens"][:, :1]}
-        decode_fn(params, caches, nxt, S, cfg=cfg)            # warm
-        for what, fn in (("prefill", lambda: prefill_fn(
-                params, prompt, cfg=cfg, max_len=S + 2)),
-                         ("decode step", lambda: decode_fn(
-                             params, caches, nxt, S + 1, cfg=cfg))):
-            wall, busy, top = traced(torch, fn)
-            ours = [(k, v) for k, v in top
-                    if "flash_" in k or "scan_kernel" in k]
-            print(f"phase9 trace {label} {what} (B {B}, S {S}): traced wall "
-                  f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
-                  f"{1 - busy / wall:.4f}); by kernel: " + "; ".join(
-                      f"{k} {v:.3f} ms" for k, v in top[:6])
-                  + "; the port's kernels: " + ("; ".join(
-                      f"{k} {v:.3f} ms" for k, v in ours) or "none"))
+        trace_steps(cfg, params, {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, S))).to(dev)}, f"phase9 trace {label}")
 
     cfg = get_config("internlm2-1.8b")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1973,7 +2046,6 @@ def run_moe(dev) -> dict:
     import dataclasses
 
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
@@ -1981,7 +2053,6 @@ def run_moe(dev) -> dict:
     from repro_torch.launch.serve import serve
     from repro_torch.models import active_params, count_params, init_params
     from repro_torch.roofline import attn_bound, attn_flops
-    from repro_torch.serving import decode_fn, prefill_fn
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(13)
@@ -2005,16 +2076,7 @@ def run_moe(dev) -> dict:
     l_err = float((lse - lse_p).abs().max())
     check(a_err <= ATTN_TOL["bfloat16"] and l_err <= ATTN_TOL["bfloat16"],
           f"phase13 flash_attention GQA-8: o err {a_err} lse err {l_err}")
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    timed = {"kernel": lambda: flash_attention_cuda(q, k, v),
-             "sdpa": lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True)}
-    turns = {"kernel": [], "sdpa": []}
-    for who in ("kernel", "sdpa", "sdpa", "kernel"):
-        turns[who].append(cuda_ms(torch, timed[who], 20))
-    a_ms, al_ms = median(turns["kernel"]), median(turns["sdpa"])
-    ap_ms = cuda_ms(torch, lambda: ref.flash_fwd_chunked(
-        q, k, v, q_chunk=1024, kv_chunk=1024), 5)
+    a_ms, al_ms, ap_ms, turns = attn_in_turns(torch, q, k, v)
     ab_ms, ab_by = attn_bound(*shape, elem=2)
     tflop = attn_flops(*shape) / 1e12
     print(f"phase13 flash_attention at the qwen3-moe-30b-a3b prefill (B 4, "
@@ -2024,7 +2086,7 @@ def run_moe(dev) -> dict:
           f"scaled_dot_product_attention {al_ms:.4f} ms (turns "
           f"{turns['sdpa']}); kernel / SDPA {a_ms / al_ms:.3f}; plain "
           f"{ap_ms:.4f} ms; bound {ab_ms:.6f} ms ({ab_by})")
-    del q, k, v, qt, kt, vt, o, o_p
+    del q, k, v, o, o_p
     release()
 
     # the slice held on the card: a 2-layer float32 cut at full width
@@ -2086,20 +2148,10 @@ def run_moe(dev) -> dict:
           f"{out['throughput_tok_s']}; wall {out['wall_s']} s; peak device "
           f"memory {peak} B of {total} B; all logits finite")
     # where one prefill and one decode step of a batch spend device time
-    prompt = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (4, 1024))).to(dev)}
-    _, caches = prefill_fn(params, prompt, cfg=cfg, max_len=1026)
-    nxt = {"tokens": prompt["tokens"][:, :1]}
-    for what, fn in (("prefill", lambda: prefill_fn(params, prompt, cfg=cfg,
-                                                     max_len=1026)),
-                     ("decode step", lambda: decode_fn(params, caches, nxt,
-                                                       1024, cfg=cfg))):
-        wall, busy, top = traced(torch, fn)
-        print(f"phase13 trace qwen3-moe-30b-a3b {what} (B 4, S 1024): traced "
-              f"wall {wall:.3f} ms, device busy {busy:.3f} ms (idle share "
-              f"{1 - busy / wall:.4f}); by kernel: " + "; ".join(
-                  f"{k} {v:.3f} ms" for k, v in top[:8]))
-    del params, caches
+    trace_steps(cfg, params, {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 1024))).to(dev)},
+        "phase13 trace qwen3-moe-30b-a3b")
+    del params
     release()
     print(f"phase13 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": n_flash, "max_abs_err": a_err, "ms": a_ms,
@@ -3488,6 +3540,305 @@ def run_scale(dev) -> dict:
           f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": dict(launches), "cover_dp": cover_rec,
             "fused_rows": rows_rec}
+
+
+#: phase 17: every other family of the reference served at full width —
+#: (arch, serve cut, hold cut, prompt tokens, parameters of the serve run,
+#: of the hold); a cut is (first layer, end, prefix_layers, scan_period),
+#: None for the whole stack, its scan_period dividing its body
+#: (``ModelConfig.n_periods``).  The MoE cuts serve with bfloat16
+#: parameters: jamba's five layers are 96.2 GB and kimi's two 79.7 GB in
+#: float32.  Every hold takes float32 parameters.
+FAMILIES = (
+    ("stablelm-3b", None, (0, 2, 0, 1), 1024, 2_795_443_200, 416_179_200),
+    ("qwen2.5-14b", None, (0, 2, 0, 1), 1024, 14_770_033_664,
+     2_107_677_696),
+    ("internvl2-1b", None, (0, 2, 0, 1), 1000, 493_803_392, 165_730_944),
+    ("musicgen-large", None, (0, 2, 0, 1), 1024, 3_255_177_216,
+     167_792_640),
+    ("jamba-1.5-large-398b", (0, 5, 0, 5), (3, 5, 0, 2), 1024,
+     24_045_707_264, 11_912_896_512),
+    ("kimi-k2-1t-a32b", (0, 2, 1, 1), (0, 1, 0, 1), 1024, 19_934_645_248,
+     2_860_798_976),
+)
+#: each family's serve run (the prompt length is the family's)
+FAMILY_SERVE = dict(requests=8, batch=4, new_tokens=16)
+#: the f32 hold: prefill (B 2, S 256) + 4 greedy decode steps, its bar
+FAMILY_HOLD = (2, 256, 4, 2e-4)
+#: jamba's prefill scan, timed: (B, S, di, N)
+JAMBA_SCAN = (4, 1024, 16384, 16)
+
+
+def cut_layers(cfg, cut, **kw):
+    """``cfg`` cut to ``cut`` (see :data:`FAMILIES`), with ``kw``."""
+    import dataclasses
+
+    if cut is not None:
+        lo, hi, prefix, period = cut
+        kw = dict(n_layers=hi - lo, layout=cfg.layout[lo:hi],
+                  prefix_layers=prefix, scan_period=period, **kw)
+    return dataclasses.replace(cfg, **kw).validate()
+
+
+def run_families(dev) -> dict:
+    """Phase 17 on ``dev``: stablelm-3b, qwen2.5-14b, internvl2-1b,
+    musicgen-large, jamba-1.5-large and kimi-k2 served at full width
+    through ``launch.serve.serve`` (:data:`FAMILIES`), each with a
+    ``torch.profiler`` breakdown of one prefill and one decode step and a
+    float32 cut held to the plain versions; ``flash_attention`` at each
+    family's prefill shape and ``mamba_scan`` at jamba's, held to their
+    plain versions and timed against SDPA and their bounds.  Returns the
+    launches of the serve runs and the readings."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.cuda_lib import library
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    from repro_torch.launch.serve import _prompts, serve
+    from repro_torch.models import active_params, count_params, init_params
+    from repro_torch.roofline import attn_bound, attn_flops, scan_bound
+    from repro_torch.serving import prefill_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device=dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    card = card_line()
+    launches = {"flash_attention": 0, "mamba_scan": 0}
+    attn_readings = {}
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def reset():
+        flash_attention_cuda.launches = selective_scan_cuda.launches = 0
+
+    def counts():
+        return flash_attention_cuda.launches, selective_scan_cuda.launches
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def mixers(cfg):
+        attn = sum(spec.mixer == "attn" for spec in cfg.layout)
+        return attn, cfg.n_layers - attn
+
+    def attn_reading(label, b, s, h, kv, hd, n_launch):
+        """flash_attention at a family's prefill shape (bf16, causal): held
+        to its plain version (o and lse), its columns past hd never
+        written, timed in turns with SDPA."""
+        q, k, v = (torch.randn(sh, generator=gen, device=dev).to(
+            torch.bfloat16) for sh in ((b, s, h, hd), (b, s, kv, hd),
+                                       (b, s, kv, hd)))
+        o, lse = flash_attention_cuda(q, k, v, causal=True)
+        o_p, lse_p = ref.flash_fwd_chunked(q, k, v, q_chunk=s, kv_chunk=s,
+                                           causal=True)
+        # a launch into a buffer one padded row longer than o, filled with
+        # NaN: the last head's columns hd .. 64 * ceil(hd / 64) - 1 would
+        # land past o's end
+        n = o.numel()
+        buf = torch.full((n + 256,), float("nan"), dtype=torch.bfloat16,
+                         device=dev)
+        lse_b = torch.empty_like(lse)
+        with torch.cuda.device(dev):
+            rc = library().flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+                lse_b.data_ptr(), b, s, s, h, kv, hd, 0, s, 1, 1,
+                torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        e_o, e_l = err(o, o_p), err(lse, lse_p)
+        check(e_o <= ATTN_TOL["bfloat16"] and e_l <= ATTN_TOL["bfloat16"],
+              f"phase17 flash_attention {label}: o err {e_o} lse err {e_l}")
+        check(rc == 0 and torch.equal(buf[:n].view_as(o), o)
+              and torch.equal(lse_b, lse) and bool(torch.isnan(buf[n:]).all()),
+              f"phase17 flash_attention {label}: a column past hd {hd} was "
+              "written, or a second launch differs")
+        a_ms, al_ms, ap_ms, turns = attn_in_turns(torch, q, k, v)
+        ab_ms, ab_by = attn_bound(b, s, s, h, kv, hd, elem=2)
+        tflop = attn_flops(b, s, s, h, kv, hd) / 1e12
+        hdp = -(-hd // 64) * 64
+        print(f"phase17 flash_attention at the {label} prefill (B {b}, S {s},"
+              f" H {h}, KV {kv}, G {h // kv}, hd {hd} in boxes of {hdp}, "
+              f"bf16; {card}): o err {e_o:.3e} lse err {e_l:.3e}, columns "
+              f"past hd unwritten; kernel {a_ms:.4f} ms (turns "
+              f"{turns['kernel']}) {tflop / a_ms * 1e3:.1f} TFLOP/s "
+              f"{ab_ms / a_ms:.2%} of bound; scaled_dot_product_attention "
+              f"{al_ms:.4f} ms (turns {turns['sdpa']}); kernel / SDPA "
+              f"{a_ms / al_ms:.3f}; plain {ap_ms:.4f} ms; bound {ab_ms:.6f} "
+              f"ms ({ab_by}); padding {1 - hd / hdp:.1%} of each product; "
+              f"{n_launch} launches in the serve run")
+        attn_readings[label] = {
+            "shape": f"B {b}, S {s}, H {h}, KV {kv}, hd {hd}, bf16, causal",
+            "launches": n_launch, "max_abs_err": max(e_o, e_l),
+            "ms": a_ms, "plain_ms": ap_ms, "bound_ms": ab_ms,
+            "bound_by": ab_by, "library_ms": al_ms}
+
+    served_shapes = []
+    for seed, (arch, cut, hold, S, n_serve, n_hold) in enumerate(FAMILIES):
+        full = get_config(arch)
+        kw = {} if cut is None else {"param_dtype": "bfloat16"}
+        cfg = cut_layers(full, cut, **kw)
+        check(count_params(cfg) == n_serve,
+              f"phase17 {arch}: {count_params(cfg)} parameters")
+        attn, ssm = mixers(cfg)
+        vp = cfg.vision_prefix if cfg.input_mode == "vlm" else 0
+        release()
+
+        # -- the serve run ----------------------------------------------
+        t0 = time.perf_counter()
+        params = init_params(cfg, gen.manual_seed(170 + seed), dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        out = serve(cfg, params, prompt_len=S, seed=0, device=dev,
+                    **FAMILY_SERVE)
+        got = counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        bs = out["batches"]
+        want = (attn * len(bs), ssm * len(bs))
+        check(out["served"] == FAMILY_SERVE["requests"],
+              f"phase17 serve {arch}: served {out['served']}")
+        check(out["all_finite"], f"phase17 serve {arch}: a logit is not "
+              "finite")
+        check(got == want, f"phase17 serve {arch}: launches (flash, scan) "
+              f"{got}, expected {want}")
+        check(peak < total, f"phase17 serve {arch}: peak {peak} B over "
+              f"{total} B")
+        shapes = sorted({t.shape for t in out["tokens"]})
+        want_tok = (FAMILY_SERVE["batch"], FAMILY_SERVE["new_tokens"] + 1) \
+            + ((cfg.n_codebooks,) if cfg.input_mode == "audio_codes" else ())
+        check(shapes == [want_tok], f"phase17 serve {arch}: tokens {shapes}")
+        launches["flash_attention"] += got[0]
+        launches["mamba_scan"] += got[1]
+        n_new = FAMILY_SERVE["new_tokens"]
+        layers = ("all" if cut is None else
+                  f"layout[{cut[0]}:{cut[1]}]") + f" {cfg.n_layers} layers"
+        print(f"phase17 serve {arch} ({card}): full width, {layers} "
+              f"({attn} attention, {ssm} Mamba; {count_params(cfg)} params, "
+              f"{active_params(cfg)} active a token, {cfg.param_dtype}, "
+              f"drawn on the card in {t_init:.1f} s); "
+              f"{FAMILY_SERVE['requests']} requests, batch "
+              f"{FAMILY_SERVE['batch']}, prompt {S}"
+              + (f" after {vp} vision embeddings" if vp else "")
+              + f", {n_new} new tokens, bf16 compute; launches "
+              f"flash_attention={got[0]} mamba_scan={got[1]}; prefill ms "
+              f"{[round(b['prefill_s'] * 1e3, 3) for b in bs]}; decode ms a "
+              f"step {[round(b['decode_s'] * 1e3 / n_new, 3) for b in bs]}; "
+              f"tok/s {out['throughput_tok_s']}; wall {out['wall_s']} s; "
+              f"peak device memory {peak} B of {total} B; tokens {shapes}; "
+              "all logits finite")
+        if attn:
+            served_shapes.append((arch, FAMILY_SERVE["batch"], vp + S,
+                                  cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.resolved_head_dim, got[0]))
+
+        trace_steps(cfg, params, _prompts(cfg, rng, FAMILY_SERVE["batch"],
+                                          S, dev), f"phase17 trace {arch}")
+
+        # the bf16 cuts: kernels vs plain versions, reported, not held
+        if cut is not None:
+            prompt = _prompts(cfg, rng, 2, 1024, dev)
+            reset()
+            lk, _ = prefill_fn(params, prompt, cfg=cfg, max_len=1024)
+            check(counts() == (attn, ssm),
+                  f"phase17 {arch} bf16 prefill: launches {counts()}")
+            lp, _ = prefill_fn(params, prompt, cfg=dataclasses.replace(
+                cfg, attention_impl="chunked"), max_len=1024)
+            check(counts() == (attn, ssm),
+                  f"phase17 {arch} bf16 plain prefill launched a kernel")
+            bf_diff = err(lk, lp)
+            same = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+            print(f"phase17 {arch} {layers} bfloat16 parameters, prefill "
+                  f"(B 2, S 1024) through the kernels vs the plain versions: "
+                  f"max logit diff {bf_diff:.4f} (largest |logit| "
+                  f"{float(lk.float().abs().max()):.4f}), argmax agreement "
+                  f"{same:.4f} (reported, not held)")
+            del prompt, lk, lp
+        del params
+        release()
+
+        # -- the float32 hold ---------------------------------------------
+        hb, hs, steps, bar = FAMILY_HOLD
+        hcfg = cut_layers(full, hold, dtype="float32")
+        check(count_params(hcfg) == n_hold,
+              f"phase17 {arch} hold: {count_params(hcfg)} parameters")
+        params = init_params(hcfg, gen.manual_seed(270 + seed), dev)
+        prompt = _prompts(hcfg, rng, hb, hs, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        outs_k, toks_k = greedy(hcfg, params, prompt, steps)
+        h_attn, h_ssm = mixers(hcfg)
+        check(counts() == (h_attn, h_ssm),
+              f"phase17 {arch} hold: launches {counts()}")
+        outs_p, toks_p = greedy(dataclasses.replace(
+            hcfg, attention_impl="chunked"), params, prompt, steps)
+        check(counts() == (h_attn, h_ssm),
+              f"phase17 {arch} hold: the plain run launched a kernel")
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(all(bool(torch.isfinite(a).all()) for a in outs_k),
+              f"phase17 {arch} hold: a logit is not finite")
+        diff = max(err(a, b) for a, b in zip(outs_k, outs_p))
+        check(diff <= bar, f"phase17 {arch} hold: logits differ by {diff}")
+        check(torch.equal(toks_k, toks_p), f"phase17 {arch} hold: tokens "
+              f"differ {toks_k.tolist()} vs {toks_p.tolist()}")
+        print(f"phase17 hold {arch}: layout[{hold[0]}:{hold[1]}] at full "
+              f"width ({n_hold} float32 params), prefill (B {hb}, S "
+              f"{prompt_len(hcfg, prompt)}) + {steps} greedy decode steps, "
+              f"kernels vs plain versions: max logit diff {diff:.3e} (bar "
+              f"{bar}), tokens equal {tuple(toks_k.shape)}; launches "
+              f"(flash, scan) {counts()}; peak device memory {peak} B")
+        del params, prompt, outs_k, outs_p
+        release()
+
+    # -- the kernels at the new prefill shapes ---------------------------
+    for arch, b, s, h, kv, hd, n_launch in served_shapes:
+        attn_reading(arch, b, s, h, kv, hd, n_launch)
+        release()
+    b, s, di, n = JAMBA_SCAN
+    sh = (b, s, di)
+    x = F.silu(torch.randn(sh, generator=gen, device=dev)).to(torch.bfloat16)
+    dt = F.softplus(-4.6 + 0.5 * torch.randn(sh, generator=gen, device=dev)
+                    ).to(torch.bfloat16)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(
+        di, n).contiguous()
+    D = torch.ones(di, device=dev)
+    Bm, Cm = (torch.randn((b, s, n), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    args = (x, dt, A, Bm, Cm, D)
+    y, hf = selective_scan_cuda(*args)
+    y_p, h_p = ref.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    e_y, e_h = err(y, y_p), err(hf, h_p)
+    check(e_y <= SCAN_TOL["bfloat16"] and e_h <= SCAN_TOL["bfloat16"],
+          f"phase17 mamba_scan at jamba's prefill: y err {e_y} h err {e_h}")
+    s_ms = cuda_ms(torch, lambda: selective_scan_cuda(*args), 20)
+    sp_ms = cuda_ms(torch, lambda: ref.selective_scan_ref(*args), 2)
+    sb_ms, sb_by = scan_bound(b, s, di, n, elem=2)
+    n_scan = launches["mamba_scan"]
+    print(f"phase17 mamba_scan at the jamba-1.5-large prefill (B {b}, S {s},"
+          f" di {di}, N {n}, bf16; {card}): y err {e_y:.3e} h_final err "
+          f"{e_h:.3e}; kernel {s_ms:.4f} ms {sb_ms / s_ms:.2%} of bound; "
+          f"plain (sequential) {sp_ms:.4f} ms; library none; bound "
+          f"{sb_ms:.6f} ms ({sb_by}); {n_scan} launches in the serve run")
+    scan_reading = {"jamba-1.5-large-398b": {
+        "shape": f"B {b}, S {s}, di {di}, N {n}, bf16", "launches": n_scan,
+        "max_abs_err": max(e_y, e_h), "ms": s_ms, "plain_ms": sp_ms,
+        "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": None}}
+    del args, x, dt, Bm, Cm, y, y_p
+    release()
+    print(f"phase17 launches on the families' serve runs: {launches}; took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "flash_attention": attn_readings,
+            "mamba_scan": scan_reading}
 
 
 if __name__ == "__main__":

@@ -225,8 +225,7 @@ def _jax_serve(cfg, params, *, requests, batch, prompt_len, new_tokens,
     return out
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "falcon-mamba-7b",
-                                  "internvl2-1b", "musicgen-large"] + MOE)
+@pytest.mark.parametrize("arch", NON_MOE + MOE)
 def test_serve_greedy_tokens_match_reference_loop(arch):
     cfg_r, cfg_p, params_j, params_t = _params(arch, seed=1)
     kw = dict(requests=4, batch=2, prompt_len=8, new_tokens=4, seed=3)
