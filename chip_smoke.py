@@ -120,7 +120,7 @@ system's real sizes and holds every result to the host:
    launches = steps x layers x ``remat_passes``); full width:
    internlm2-1.8b at all 24 layers (B 4, S 1024, 5 steps) and
    falcon-mamba-7b at 8 of 64 layers (B 2, 3 steps), with losses, step
-   walls, tokens/s, share of the bf16 peak, launches a step and peak
+   walls, positions/s, share of the bf16 peak, launches and peak
    memory; ``ElasticSpotTrainer`` on internlm2-1.8b's 2-layer cut
    (a 6 GB checkpoint) through two interrupts with ``cover_dp`` on the
    card, its trace and event log equal to the smoke twin's under
@@ -205,7 +205,27 @@ system's real sizes and holds every result to the host:
    1256) held to its plain version with its columns past hd never
    written, timed against SDPA in turns, and ``mamba_scan`` at jamba's
    prefill (B 4, S 1024, di 16,384) against its plain version
-   ("phase17" lines).
+   ("phase17" lines);
+18. the other families trained through ``make_train_step``,
+   ``init_opt_state`` and ``make_batch`` (float32 parameters and AdamW
+   moments, bf16 compute, remat "dots"): a float32 cut of each at full
+   width (``layout[:2]``; jamba ``(layout[2], layout[4])``, kimi
+   ``layout[:1]``), three steps (B 2) through the kernels against the
+   same steps through the plain versions (losses and grad norms within
+   1e-4, launches = steps x layers of each kind x ``remat_passes``, the
+   plain run launching nothing), qwen3-moe's also under remat "none"
+   (within 1e-5 of "dots": the recompute routes as the forward did); at
+   full width, three steps each of qwen3-moe-30b-a3b ``layout[:4]`` (B
+   4; a traced step), jamba-1.5-large ``(layout[2], layout[4])`` (B 2:
+   both kernels' gradient functions in one step, the scan at d_inner
+   16,384), kimi-k2 ``layout[:1]`` (hd 112), stablelm-3b (hd 80),
+   qwen2.5-14b ``layout[:6]`` (GQA 5, qkv bias), internvl2-1b (1,280
+   positions: the vision prefix masked from the loss) and
+   musicgen-large (four codebooks) at B 4 x S 1024, with losses, step
+   walls, positions/s, share of the bf16 peak (6 x active parameters),
+   launches and peak memory; and ``launch.train.main`` on the smoke
+   configs of qwen3-moe and jamba (``cover_dp`` and each family's
+   sequence kernel launched) ("phase18" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -216,7 +236,8 @@ training launches in ``launches_train`` and its gradient readings in
 in ``launches_cost``, phase 16's launches in ``launches_scale`` and its
 readings at the new widths in ``scale``, phase 17's serve launches in
 ``launches_families`` and its readings at the families' shapes in
-``families``); the last line
+``families``, phase 18's training launches in
+``launches_train_families``); the last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -409,6 +430,12 @@ def ptxas_summary(log: str) -> str:
     return "; ".join(out)
 
 
+def release(torch) -> None:
+    """Give the caching allocator's free blocks back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def max_abs_err(a, b) -> float:
     a, b = np.asarray(a), np.asarray(b)
     same_inf = np.array_equal(np.isinf(a), np.isinf(b))
@@ -439,11 +466,12 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-17 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-18 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
     13 in :func:`run_moe`, 14 in :func:`run_train`, 15 in
     :func:`run_cost`, 16 in :func:`run_scale`, 17 in
-    :func:`run_families`); returns the kernel record."""
+    :func:`run_families`, 18 in :func:`run_train_families`); returns the
+    kernel record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -689,13 +717,17 @@ def run(dev) -> dict:
     cost = run_cost(dev)
     scale = run_scale(dev)
     families = run_families(dev)
+    train_families = run_train_families(dev)
     for k in kernels:
         k["launches_sim"] = sim.get(k["name"], 0)
         k["launches_policies"] = policies.get(k["name"], 0)
         k["launches"] += k["launches_sim"] + k["launches_policies"]
         if k["name"] in ("flash_attention", "mamba_scan", "cover_dp"):
             k["launches_train"] = train["launches"].get(k["name"], 0)
-            k["launches"] += k["launches_train"]
+            k["launches_train_families"] = train_families["launches"].get(
+                k["name"], 0)
+            k["launches"] += (k["launches_train"]
+                              + k["launches_train_families"])
         if k["name"] in train:
             k["train"] = train[k["name"]]
         if k["name"] in ("flash_attention", "mamba_scan", "cover_dp"):
@@ -1507,10 +1539,6 @@ def run_serving(dev) -> list:
               f"peak device memory {torch.cuda.max_memory_allocated(dev)} B;"
               f" tokens {sorted(shapes)} all logits finite")
 
-    def release():
-        gc.collect()
-        torch.cuda.empty_cache()
-
     def breakdown(cfg, params, label, B, S):
         trace_steps(cfg, params, {"tokens": torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (B, S))).to(dev)}, f"phase9 trace {label}")
@@ -1525,7 +1553,7 @@ def run_serving(dev) -> list:
            prompt_len=512, new_tokens=8)
     breakdown(cfg, params, "internlm2-1.8b", 8, 1024)
     del params
-    release()
+    release(torch)
     cfg = get_config("falcon-mamba-7b")
     params = init_params(cfg, gen.manual_seed(1), dev)
     check(count_params(cfg) == 7_272_665_088, "falcon-mamba parameter count")
@@ -1533,7 +1561,7 @@ def run_serving(dev) -> list:
            prompt_len=1024, new_tokens=16)
     breakdown(cfg, params, "falcon-mamba-7b", 4, 1024)
     del params
-    release()
+    release(torch)
     print(f"phase9 took {time.perf_counter() - t_phase:.1f} s")
 
     # -- phase 10: the slice held on the card --------------------------------
@@ -1560,7 +1588,7 @@ def run_serving(dev) -> list:
         check(torch.equal(toks_k, toks_p), f"{arch} 2-layer f32: tokens "
               f"differ {toks_k.tolist()} vs {toks_p.tolist()}")
         del params
-        release()
+        release(torch)
 
         params = init_params(full, gen.manual_seed(20 + seed), dev)
         prompt = {"tokens": torch.from_numpy(rng.integers(
@@ -1574,7 +1602,7 @@ def run_serving(dev) -> list:
         bf_diff = err(lk, lp)
         same = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
         del params, lk, lp
-        release()
+        release(torch)
         print(f"phase10 {arch}: 2-layer float32 cut at full width, prefill "
               f"(B 2, S 256) + 4 greedy decode steps, kernels vs plain "
               f"versions: max logit diff {diff:.3e} (bar 2e-4), tokens equal "
@@ -2060,10 +2088,6 @@ def run_moe(dev) -> dict:
     full = get_config("qwen3-moe-30b-a3b")
     check(count_params(full) == 30_532_110_336, "qwen3-moe parameter count")
 
-    def release():
-        gc.collect()
-        torch.cuda.empty_cache()
-
     # flash_attention at the prefill's shape: GQA 32/4 = 8, bf16
     shape = (4, 1024, 1024, 32, 4, 128)
     q, k, v = (torch.from_numpy(rng.normal(size=sh)).to(
@@ -2087,7 +2111,7 @@ def run_moe(dev) -> dict:
           f"{turns['sdpa']}); kernel / SDPA {a_ms / al_ms:.3f}; plain "
           f"{ap_ms:.4f} ms; bound {ab_ms:.6f} ms ({ab_by})")
     del q, k, v, o, o_p
-    release()
+    release(torch)
 
     # the slice held on the card: a 2-layer float32 cut at full width
     cfg = dataclasses.replace(full, dtype="float32", n_layers=2,
@@ -2114,7 +2138,7 @@ def run_moe(dev) -> dict:
           f"attention: max logit diff {diff:.3e} (bar 2e-4), tokens equal "
           f"{toks_k.tolist()}")
     del params, outs_k, outs_p
-    release()
+    release(torch)
 
     # serve at full width, depth cut to what one card holds in float32
     layers = 24
@@ -2152,7 +2176,7 @@ def run_moe(dev) -> dict:
         0, cfg.vocab_size, (4, 1024))).to(dev)},
         "phase13 trace qwen3-moe-30b-a3b")
     del params
-    release()
+    release(torch)
     print(f"phase13 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": n_flash, "max_abs_err": a_err, "ms": a_ms,
             "plain_ms": ap_ms, "bound_ms": ab_ms, "bound_by": ab_by,
@@ -2212,16 +2236,225 @@ def rel_largest(a, b) -> float:
 
 
 def train_flops(cfg, tokens: int, batch: int, seq: int) -> float:
-    """Model FLOPs of one training step: 6 x parameters x tokens, plus the
-    attention products (:func:`attn_flops` a layer, forward and twice in
-    the backward)."""
-    from repro_torch.models import count_params
+    """Model FLOPs of one training step: 6 x active parameters (a token's
+    top-k experts, not every expert; all parameters of a dense model) x
+    tokens, plus the attention products (:func:`attn_flops` a layer,
+    forward and twice in the backward)."""
+    from repro_torch.models import active_params
     from repro_torch.roofline import attn_flops
 
     attn = sum(spec.mixer == "attn" for spec in cfg.layout)
     hd = cfg.resolved_head_dim
-    return 6.0 * count_params(cfg) * tokens + 3.0 * attn * attn_flops(
+    return 6.0 * active_params(cfg) * tokens + 3.0 * attn * attn_flops(
         batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, hd)
+
+
+def kernel_counts() -> dict:
+    """Launches, since :func:`reset_counts`, of the kernels a train step
+    and the elastic trainer reach."""
+    from repro_torch.core import cover_dp as cdp
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+
+    return {"flash_attention": flash_attention_cuda.launches,
+            "mamba_scan": selective_scan_cuda.launches,
+            "cover_dp": cdp.cover_dp.launches}
+
+
+def reset_counts() -> None:
+    from repro_torch.core import cover_dp as cdp
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+
+    flash_attention_cuda.launches = selective_scan_cuda.launches = 0
+    cdp.cover_dp.launches = 0
+
+
+def step_launches(cfg, n_steps: int) -> dict:
+    """Launches of ``n_steps`` train steps of ``cfg``: each attention and
+    each Mamba layer once a pass, ``remat_passes`` passes a step, and no
+    other kernel."""
+    from repro_torch.models.transformer import remat_passes
+
+    attn = sum(spec.mixer == "attn" for spec in cfg.layout)
+    rp = n_steps * remat_passes(cfg)
+    return {"flash_attention": attn * rp,
+            "mamba_scan": (cfg.n_layers - attn) * rp, "cover_dp": 0}
+
+
+def positions(cfg) -> int:
+    """A training row's positions: :data:`TRAIN_SEQ` tokens (or audio
+    frames), after the vision prefix of a VLM."""
+    return (cfg.vision_prefix if cfg.input_mode == "vlm" else 0) + TRAIN_SEQ
+
+
+def hold_train(dev, tag, arch, cut, seed, data_seed, remat_none=False):
+    """A float32 cut of ``arch`` at full width (:func:`cut_layers`), three
+    ``make_train_step`` steps of :data:`HOLD_ROWS` rows from one seeded
+    init, through the kernels and through the plain versions (and, with
+    ``remat_none``, through the kernels without remat): launches as
+    :func:`step_launches` says and none in the plain run, losses and grad
+    norms within 1e-4 relative (1e-5 between the remat policies); prints a
+    ``tag`` line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import count_params, init_params
+    from repro_torch.train.loop import make_train_step
+
+    cfg = cut_layers(get_config(arch), cut, dtype="float32")
+    seq = positions(cfg)
+    variants = [("cuda", "dots"), ("chunked", "dots")] + (
+        [("cuda", "none")] if remat_none else [])
+    runs = {}
+    for impl, remat in variants:
+        c = dataclasses.replace(cfg, attention_impl=impl, remat_policy=remat)
+        params = init_params(c, torch.Generator(device=dev).manual_seed(
+            seed), dev)
+        opt = optim.init_opt_state(params)
+        step = make_train_step(c, optim.OptConfig(**HOLD_OPT))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        got = []
+        for i in range(TRAIN_STEPS):
+            batch = make_batch(c, DataConfig(seed=data_seed), step=i,
+                               batch=HOLD_ROWS, seq=seq)
+            params, opt, m = step(params, opt, batch)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[impl, remat] = (got, kernel_counts(),
+                             torch.cuda.max_memory_allocated(dev))
+        del params, opt, step, m
+        release(torch)
+
+    def rel_diff(a, b):
+        return max(abs(x - y) / abs(y) for ka, kb in zip(
+            runs[a][0], runs[b][0]) for x, y in zip(ka, kb))
+
+    kern, plain = runs["cuda", "dots"], runs["chunked", "dots"]
+    want = step_launches(cfg, TRAIN_STEPS)
+    check(kern[1] == want, f"{tag} {arch} hold: launches {kern[1]}, "
+          f"expected {want}")
+    check(sum(plain[1].values()) == 0,
+          f"{tag} {arch} hold: the plain run launched {plain[1]}")
+    check(all(math.isfinite(x) for r in runs.values() for lg in r[0]
+              for x in lg), f"{tag} {arch} hold: {runs}")
+    diff = rel_diff(("cuda", "dots"), ("chunked", "dots"))
+    check(diff <= 1e-4, f"{tag} {arch} hold: (loss, grad norm) {kern[0]} "
+          f"vs plain {plain[0]}")
+    remat = ""
+    if remat_none:
+        none = runs["cuda", "none"]
+        want_none = step_launches(dataclasses.replace(
+            cfg, remat_policy="none"), TRAIN_STEPS)
+        check(none[1] == want_none, f"{tag} {arch} hold remat none: "
+              f"launches {none[1]}, expected {want_none}")
+        d_remat = rel_diff(("cuda", "dots"), ("cuda", "none"))
+        check(d_remat <= 1e-5, f"{tag} {arch} hold: remat dots {kern[0]} "
+              f"vs none {none[0]}")
+        remat = (f"; remat \"dots\" vs \"none\" (both through the "
+                 f"kernels; none's launches {none[1]}, peak {none[2]} B): "
+                 f"(loss, grad norm) {none[0]}, largest relative diff "
+                 f"{d_remat:.3e} (bar 1e-5)")
+    print(f"{tag} hold {arch} ({card_line()}): {cut_label(cut)} at full "
+          f"width ({count_params(cfg)} float32 params, float32 compute), "
+          f"{TRAIN_STEPS} train steps (B {HOLD_ROWS}, S {seq}, remat "
+          f"{cfg.remat_policy}) through the kernels vs the plain versions: "
+          f"(loss, grad norm) {kern[0]} vs {plain[0]}, largest relative "
+          f"diff {diff:.3e} (bar 1e-4); launches {kern[1]}, plain "
+          f"{plain[1]}; peak device memory {kern[2]} B (plain {plain[2]} "
+          f"B)" + remat)
+
+
+def train_full(dev, tag, arch, cut, seed, n_steps, rows, trace=False):
+    """``arch`` at full width cut to ``cut`` (float32 parameters and AdamW
+    moments, the config's bf16 compute and remat), ``n_steps``
+    ``make_train_step`` steps of ``rows`` x :func:`positions` from a seeded
+    init, under the elastic trainer's default schedule: losses finite,
+    launches as :func:`step_launches` says, the peak within the card;
+    prints the step walls, positions/s, share of the bf16 peak and peak
+    memory in a ``tag`` line (and, with ``trace``, one traced step).  The
+    first step's peak is counted on ``meta`` before anything is drawn on
+    the card (``roofline.analyze_step``: parameters, moments and the peak
+    of live bytes above them) and must fit the card too.  Returns the
+    launches."""
+    import torch
+
+    from repro_torch import optim, roofline
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import active_params, count_params, init_params
+    from repro_torch.models.transformer import abstract_params, remat_passes
+    from repro_torch.train.loop import make_train_step
+
+    full = get_config(arch)
+    cfg = cut_layers(full, cut)
+    seq = positions(cfg)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    # the elastic trainer's default schedule (5 warm-up steps)
+    step = make_train_step(cfg, optim.OptConfig(warmup_steps=5,
+                                                total_steps=1000))
+    t0 = time.perf_counter()
+    ap = abstract_params(cfg)
+    c = roofline.analyze_step(step, ap, optim.init_opt_state(ap), make_batch(
+        cfg, DataConfig(seed=1), step=0, batch=rows, seq=seq))
+    counted = c.argument_bytes + c.peak_bytes
+    t_count = time.perf_counter() - t0
+    check(counted < total, f"{tag} {arch}: {counted} B counted on meta, "
+          f"over {total} B")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    opt = optim.init_opt_state(params)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls = [], []
+    reset_counts()
+    for i in range(n_steps):
+        b = make_batch(cfg, DataConfig(seed=1), step=i, batch=rows, seq=seq)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))        # synchronises
+        walls.append(time.perf_counter() - t0)
+    got = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = step_launches(cfg, n_steps)
+    check(all(math.isfinite(x) for x in losses),
+          f"{tag} {arch}: losses {losses}")
+    check(got == want, f"{tag} {arch}: launches {got}, expected {want}")
+    check(peak < total, f"{tag} {arch}: peak {peak} B over {total} B")
+    wall = median(walls[1:])
+    flops = train_flops(cfg, rows * seq, rows, seq)
+    n_attn = want["flash_attention"] // (n_steps * remat_passes(cfg))
+    print(f"{tag} train {arch} ({card_line()}): full width, "
+          f"{cut_label(cut)} {cfg.n_layers} of {full.n_layers} layers "
+          f"({n_attn} attention, {cfg.n_layers - n_attn} Mamba; "
+          f"{count_params(cfg)} params, {active_params(cfg)} active a token;"
+          f" float32 with float32 AdamW moments, drawn on the card in "
+          f"{t_init:.1f} s; {cfg.dtype} compute, remat {cfg.remat_policy}); "
+          f"B {rows} x S {seq}, {n_steps} steps; losses {losses}; step "
+          f"walls s {[round(w, 4) for w in walls]}, warm median {wall:.4f} "
+          f"s; {rows * seq / wall:.1f} positions/s; model FLOPs a step "
+          f"{flops:.4e} (6 x active params x positions + attention), "
+          f"{flops / wall / BF16_TC_OPS_PER_S:.2%} of the dense bf16 peak; "
+          f"launches {got} (= {n_steps} steps x layers of each kind x "
+          f"{remat_passes(cfg)}); peak device memory {peak} B of {total} B, "
+          f"{peak / counted - 1:+.2%} on the {counted} B counted on meta "
+          f"before the run ({t_count:.1f} s to count)")
+    if trace:
+        t_wall, busy, top = traced(torch, lambda: step(params, opt, b))
+        print(f"{tag} trace {arch} train step: traced wall {t_wall:.3f} "
+              f"ms, device busy {busy:.3f} ms (idle share "
+              f"{1 - busy / t_wall:.4f}); by kernel: " + "; ".join(
+                  f"{k} {v:.3f} ms" for k, v in top[:10]))
+    del params, opt, step, m
+    release(torch)
+    return got
 
 
 def run_train(dev) -> dict:
@@ -2235,45 +2468,27 @@ def run_train(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.core import (Request, SpotMarketSimulator,
                                   generate_catalog)
     from repro_torch.core import backend as bmod
-    from repro_torch.core import cover_dp as cdp
-    from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.mamba_scan import selective_scan_cuda
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import count_params, init_params
+    from repro_torch.models import count_params
     from repro_torch.models.transformer import remat_passes
     from repro_torch.roofline import attn_flops
     from repro_torch.runtime import ElasticConfig, ElasticSpotTrainer
-    from repro_torch.train.loop import make_train_step
 
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(14)
-    gen = torch.Generator(device=dev)
     card = card_line()
 
     def on_card(a, dtype, grad=False):
         return torch.from_numpy(np.asarray(a)).to(
             device=dev, dtype=dtype).requires_grad_(grad)
-
-    def release():
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    def reset():
-        flash_attention_cuda.launches = selective_scan_cuda.launches = 0
-        cdp.cover_dp.launches = 0
-
-    def launches():
-        return {"flash_attention": flash_attention_cuda.launches,
-                "mamba_scan": selective_scan_cuda.launches,
-                "cover_dp": cdp.cover_dp.launches}
 
     # -- 14a: the gradient functions against their plain versions ----------
     def hold_attn(label, shape, dtype, tol):
@@ -2339,7 +2554,7 @@ def run_train(dev) -> dict:
           f"{3 * fl / sfb_ms / 1e9:.1f} TFLOP/s); ours / SDPA "
           f"{fb_ms / sfb_ms:.3f}")
     del q, k, v, do, o_k, lse_k, qd, kd, vd, qt, kt, vt, dot, timed
-    release()
+    release(torch)
 
     def scan_args(b, s, di, n, dtype):
         """As falcon-mamba's layers feed the scan at init (phase 8)."""
@@ -2374,7 +2589,7 @@ def run_train(dev) -> dict:
               f"{n} {e:.3e}" for n, e in errs.items())
           + f" (bar {SCAN_TOL['float32']})")
     del args, dy, y, g_k, y_p, g_p
-    release()
+    release(torch)
     args = [t.detach() for t in scan_args(*sshape, torch.bfloat16)]
     dy = on_card(rng.normal(size=sshape[:3]), torch.bfloat16)
     sfwd_ms = cuda_ms(torch, lambda: selective_scan_cuda(*args), 20)
@@ -2390,111 +2605,26 @@ def run_train(dev) -> dict:
           f"(scan_backward, chunks of 256 in reverse) {sbwd_ms:.4f} ms, "
           f"{sbwd_mem} B of device memory above its inputs")
     del args, dy
-    release()
+    release(torch)
     print(f"phase14a took {time.perf_counter() - t_phase:.1f} s")
 
     # -- 14b: a 2-layer float32 cut at full width, kernels vs plain --------
     t0 = time.perf_counter()
-    ocfg = optim.OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
     for seed, arch in enumerate(("internlm2-1.8b", "falcon-mamba-7b")):
-        full = get_config(arch)
-        cfg = dataclasses.replace(full, dtype="float32", n_layers=2,
-                                  layout=full.layout[:2])
-        runs = {}
-        for impl in ("cuda", "chunked"):
-            c = dataclasses.replace(cfg, attention_impl=impl)
-            params = init_params(c, gen.manual_seed(40 + seed), dev)
-            opt = optim.init_opt_state(params)
-            step = make_train_step(c, ocfg)
-            reset()
-            got = []
-            for i in range(3):
-                batch = make_batch(c, DataConfig(seed=seed), step=i, batch=2,
-                                   seq=1024)
-                params, opt, m = step(params, opt, batch)
-                got.append((float(m["loss"]), float(m["grad_norm"])))
-            runs[impl] = (got, launches())
-            del params, opt
-            release()
-        n_k = runs["cuda"][1]["flash_attention"] + runs["cuda"][1][
-            "mamba_scan"]
-        want = 3 * cfg.n_layers * remat_passes(cfg)
-        check(n_k == want, f"phase14 {arch} 2-layer: {n_k} kernel launches "
-              f"in 3 steps, expected {want} (remat {cfg.remat_policy})")
-        check(sum(runs["chunked"][1].values()) == 0,
-              f"phase14 {arch} 2-layer: the plain run launched a kernel")
-        diff = max(abs(a - b) / abs(b) for ka, kb in zip(
-            runs["cuda"][0], runs["chunked"][0]) for a, b in zip(ka, kb))
-        check(diff <= 1e-4, f"phase14 {arch} 2-layer f32: losses / grad "
-              f"norms {runs['cuda'][0]} vs {runs['chunked'][0]}")
-        print(f"phase14 {arch}: 2-layer float32 cut at full width, 3 train "
-              f"steps (B 2, S 1024, remat {cfg.remat_policy}) through the "
-              f"kernels vs the plain versions: (loss, grad norm) "
-              f"{runs['cuda'][0]} vs {runs['chunked'][0]}, largest relative "
-              f"diff {diff:.3e} (bar 1e-4); kernel launches {n_k} = 3 steps "
-              f"x {cfg.n_layers} layers x {remat_passes(cfg)} (forward + "
-              f"recompute)")
+        hold_train(dev, "phase14", arch, FIRST_TWO, 40 + seed, seed)
     print(f"phase14b took {time.perf_counter() - t0:.1f} s")
 
     # -- 14c: full width ---------------------------------------------------
     t0 = time.perf_counter()
     train_launches = collections.Counter()
-    total = torch.cuda.get_device_properties(dev).total_memory
     # one traced step of internlm2 (falcon's step is its 8 scan backwards,
     # timed in 14a; a trace costs ~10 s of the phase)
-    for arch, layers, batch, n_steps, kname, trace in (
-            ("internlm2-1.8b", 24, 4, 5, "flash_attention", True),
-            ("falcon-mamba-7b", 8, 2, 3, "mamba_scan", False)):
-        full = get_config(arch)
-        cfg = dataclasses.replace(full, n_layers=layers,
-                                  layout=full.layout[:layers])
-        params = init_params(cfg, gen.manual_seed(50), dev)
-        opt = optim.init_opt_state(params)
-        # the elastic trainer's default schedule (5 warm-up steps)
-        step = make_train_step(cfg, optim.OptConfig(warmup_steps=5,
-                                                    total_steps=1000))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        losses, walls = [], []
-        reset()
-        for i in range(n_steps):
-            b = make_batch(cfg, DataConfig(seed=1), step=i, batch=batch,
-                           seq=1024)
-            t1 = time.perf_counter()
-            params, opt, m = step(params, opt, b)
-            losses.append(float(m["loss"]))        # synchronises
-            walls.append(time.perf_counter() - t1)
-        got = launches()
-        train_launches.update(got)
-        peak = torch.cuda.max_memory_allocated(dev)
-        want = n_steps * layers * remat_passes(cfg)
-        check(all(math.isfinite(x) for x in losses),
-              f"phase14 {arch}: losses {losses}")
-        check(got[kname] == want and sum(got.values()) == want,
-              f"phase14 {arch}: launches {got}, expected {want} {kname}")
-        check(peak < total, f"phase14 {arch}: peak {peak} B over {total} B")
-        wall = median(walls[1:])
-        tokens = batch * 1024
-        flops = train_flops(cfg, tokens, batch, 1024)
-        print(f"phase14 train {arch} ({card}): full width, {layers} of "
-              f"{full.n_layers} layers ({count_params(cfg)} params, float32 "
-              f"with float32 AdamW moments; {cfg.dtype} compute, remat "
-              f"{cfg.remat_policy}); B {batch} x S 1024, {n_steps} steps; "
-              f"losses {losses}; step walls s "
-              f"{[round(w, 4) for w in walls]}, warm median {wall:.4f} s; "
-              f"{tokens / wall:.1f} tokens/s; model FLOPs a step "
-              f"{flops:.4e} (6 x params x tokens + attention), "
-              f"{flops / wall / BF16_TC_OPS_PER_S:.2%} of the dense bf16 "
-              f"peak; {kname} launches a step {got[kname] / n_steps:g}; "
-              f"peak device memory {peak} B of {total} B")
-        if trace:
-            t_wall, busy, top = traced(torch, lambda: step(params, opt, b))
-            print(f"phase14 trace {arch} train step: traced wall "
-                  f"{t_wall:.3f} ms, device busy {busy:.3f} ms (idle share "
-                  f"{1 - busy / t_wall:.4f}); by kernel: " + "; ".join(
-                      f"{k} {v:.3f} ms" for k, v in top[:10]))
-        del params, opt, step
-        release()
+    for arch, layers, rows, n_steps, trace in (
+            ("internlm2-1.8b", 24, 4, 5, True),
+            ("falcon-mamba-7b", 8, 2, 3, False)):
+        train_launches.update(train_full(dev, "phase14", arch,
+                                         (range(layers), 0, 1), 50, n_steps,
+                                         rows, trace))
     print(f"phase14c took {time.perf_counter() - t0:.1f} s")
 
     # -- 14d: ElasticSpotTrainer on the card -------------------------------
@@ -2516,13 +2646,13 @@ def run_train(dev) -> dict:
     d = tempfile.mkdtemp(prefix="phase14-", dir=os.path.join(ROOT, "build"))
     walls = {"save": [], "restore": []}
     try:
-        reset()
+        reset_counts()
         with timed_checkpoints(torch, walls):
             tr = ElasticSpotTrainer(cfg, req, market(),
                                     os.path.join(d, "run"),
                                     ElasticConfig(**ELASTIC), device=dev)
             out = tr.run()
-        got = launches()
+        got = kernel_counts()
         train_launches.update(got)
         handled = [e for e in out["events"]
                    if e["event"] in ("interrupt", "straggler")]
@@ -2562,8 +2692,8 @@ def run_train(dev) -> dict:
         nbytes = sum(os.path.getsize(os.path.join(files, f))
                      for f in os.listdir(files))
         del tr
-        release()
-        reset()
+        release(torch)
+        reset_counts()
         with timed_checkpoints(torch, walls):
             tr2 = ElasticSpotTrainer(cfg, req, market(),
                                      os.path.join(d, "run"),
@@ -2571,7 +2701,7 @@ def run_train(dev) -> dict:
                                                       "total_steps": 14}),
                                      device=dev)
             out2 = tr2.run()
-        got2 = launches()
+        got2 = kernel_counts()
         train_launches.update(got2)
         check(any(e["event"] == "resume" and e["detail"]["from"] == 12
                   for e in out2["events"]) and out2["steps"] == 14,
@@ -2592,7 +2722,7 @@ def run_train(dev) -> dict:
               f"restart's); restart resumed at 12 and ran to "
               f"{out2['steps']} (launches {got2})")
         del tr2
-        release()
+        release(torch)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     print(f"phase14d took {time.perf_counter() - t0:.1f} s")
@@ -2602,10 +2732,10 @@ def run_train(dev) -> dict:
     d = tempfile.mkdtemp(prefix="phase14-", dir=os.path.join(ROOT, "build"))
     buf = io.StringIO()
     try:
-        reset()
+        reset_counts()
         with contextlib.redirect_stdout(buf):
             launch_train.main(["--steps", "6", "--ckpt-dir", d])
-        got = launches()
+        got = kernel_counts()
         train_launches.update(got)
     finally:
         shutil.rmtree(d, ignore_errors=True)
@@ -3544,22 +3674,22 @@ def run_scale(dev) -> dict:
 
 #: phase 17: every other family of the reference served at full width —
 #: (arch, serve cut, hold cut, prompt tokens, parameters of the serve run,
-#: of the hold); a cut is (first layer, end, prefix_layers, scan_period),
-#: None for the whole stack, its scan_period dividing its body
-#: (``ModelConfig.n_periods``).  The MoE cuts serve with bfloat16
-#: parameters: jamba's five layers are 96.2 GB and kimi's two 79.7 GB in
-#: float32.  Every hold takes float32 parameters.
+#: of the hold); a cut is (the layout's layers taken, a range or a tuple
+#: of indices; prefix_layers; scan_period), None for the whole stack, its
+#: scan_period dividing its body (``ModelConfig.n_periods``).  The MoE
+#: cuts serve with bfloat16 parameters: jamba's five layers are 96.2 GB
+#: and kimi's two 79.7 GB in float32.  Every hold takes float32
+#: parameters.
+FIRST_TWO = (range(2), 0, 1)
 FAMILIES = (
-    ("stablelm-3b", None, (0, 2, 0, 1), 1024, 2_795_443_200, 416_179_200),
-    ("qwen2.5-14b", None, (0, 2, 0, 1), 1024, 14_770_033_664,
-     2_107_677_696),
-    ("internvl2-1b", None, (0, 2, 0, 1), 1000, 493_803_392, 165_730_944),
-    ("musicgen-large", None, (0, 2, 0, 1), 1024, 3_255_177_216,
-     167_792_640),
-    ("jamba-1.5-large-398b", (0, 5, 0, 5), (3, 5, 0, 2), 1024,
+    ("stablelm-3b", None, FIRST_TWO, 1024, 2_795_443_200, 416_179_200),
+    ("qwen2.5-14b", None, FIRST_TWO, 1024, 14_770_033_664, 2_107_677_696),
+    ("internvl2-1b", None, FIRST_TWO, 1000, 493_803_392, 165_730_944),
+    ("musicgen-large", None, FIRST_TWO, 1024, 3_255_177_216, 167_792_640),
+    ("jamba-1.5-large-398b", (range(5), 0, 5), (range(3, 5), 0, 2), 1024,
      24_045_707_264, 11_912_896_512),
-    ("kimi-k2-1t-a32b", (0, 2, 1, 1), (0, 1, 0, 1), 1024, 19_934_645_248,
-     2_860_798_976),
+    ("kimi-k2-1t-a32b", (range(2), 1, 1), (range(1), 0, 1), 1024,
+     19_934_645_248, 2_860_798_976),
 )
 #: each family's serve run (the prompt length is the family's)
 FAMILY_SERVE = dict(requests=8, batch=4, new_tokens=16)
@@ -3574,10 +3704,22 @@ def cut_layers(cfg, cut, **kw):
     import dataclasses
 
     if cut is not None:
-        lo, hi, prefix, period = cut
-        kw = dict(n_layers=hi - lo, layout=cfg.layout[lo:hi],
+        layers, prefix, period = cut
+        kw = dict(n_layers=len(layers),
+                  layout=tuple(cfg.layout[i] for i in layers),
                   prefix_layers=prefix, scan_period=period, **kw)
     return dataclasses.replace(cfg, **kw).validate()
+
+
+def cut_label(cut) -> str:
+    """``layout[lo:hi]`` of a cut that takes a range of layers, else the
+    layers it takes."""
+    if cut is None:
+        return "all"
+    layers = cut[0]
+    if isinstance(layers, range):
+        return f"layout[{layers.start}:{layers.stop}]"
+    return "(" + ", ".join(f"layout[{i}]" for i in layers) + ")"
 
 
 def run_families(dev) -> dict:
@@ -3613,10 +3755,6 @@ def run_families(dev) -> dict:
     card = card_line()
     launches = {"flash_attention": 0, "mamba_scan": 0}
     attn_readings = {}
-
-    def release():
-        gc.collect()
-        torch.cuda.empty_cache()
 
     def reset():
         flash_attention_cuda.launches = selective_scan_cuda.launches = 0
@@ -3690,7 +3828,7 @@ def run_families(dev) -> dict:
               f"phase17 {arch}: {count_params(cfg)} parameters")
         attn, ssm = mixers(cfg)
         vp = cfg.vision_prefix if cfg.input_mode == "vlm" else 0
-        release()
+        release(torch)
 
         # -- the serve run ----------------------------------------------
         t0 = time.perf_counter()
@@ -3720,8 +3858,7 @@ def run_families(dev) -> dict:
         launches["flash_attention"] += got[0]
         launches["mamba_scan"] += got[1]
         n_new = FAMILY_SERVE["new_tokens"]
-        layers = ("all" if cut is None else
-                  f"layout[{cut[0]}:{cut[1]}]") + f" {cfg.n_layers} layers"
+        layers = f"{cut_label(cut)} {cfg.n_layers} layers"
         print(f"phase17 serve {arch} ({card}): full width, {layers} "
               f"({attn} attention, {ssm} Mamba; {count_params(cfg)} params, "
               f"{active_params(cfg)} active a token, {cfg.param_dtype}, "
@@ -3764,7 +3901,7 @@ def run_families(dev) -> dict:
                   f"{same:.4f} (reported, not held)")
             del prompt, lk, lp
         del params
-        release()
+        release(torch)
 
         # -- the float32 hold ---------------------------------------------
         hb, hs, steps, bar = FAMILY_HOLD
@@ -3790,19 +3927,19 @@ def run_families(dev) -> dict:
         check(diff <= bar, f"phase17 {arch} hold: logits differ by {diff}")
         check(torch.equal(toks_k, toks_p), f"phase17 {arch} hold: tokens "
               f"differ {toks_k.tolist()} vs {toks_p.tolist()}")
-        print(f"phase17 hold {arch}: layout[{hold[0]}:{hold[1]}] at full "
+        print(f"phase17 hold {arch}: {cut_label(hold)} at full "
               f"width ({n_hold} float32 params), prefill (B {hb}, S "
               f"{prompt_len(hcfg, prompt)}) + {steps} greedy decode steps, "
               f"kernels vs plain versions: max logit diff {diff:.3e} (bar "
               f"{bar}), tokens equal {tuple(toks_k.shape)}; launches "
               f"(flash, scan) {counts()}; peak device memory {peak} B")
         del params, prompt, outs_k, outs_p
-        release()
+        release(torch)
 
     # -- the kernels at the new prefill shapes ---------------------------
     for arch, b, s, h, kv, hd, n_launch in served_shapes:
         attn_reading(arch, b, s, h, kv, hd, n_launch)
-        release()
+        release(torch)
     b, s, di, n = JAMBA_SCAN
     sh = (b, s, di)
     x = F.silu(torch.randn(sh, generator=gen, device=dev)).to(torch.bfloat16)
@@ -3834,12 +3971,118 @@ def run_families(dev) -> dict:
         "max_abs_err": max(e_y, e_h), "ms": s_ms, "plain_ms": sp_ms,
         "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": None}}
     del args, x, dt, Bm, Cm, y, y_p
-    release()
+    release(torch)
     print(f"phase17 launches on the families' serve runs: {launches}; took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "flash_attention": attn_readings,
             "mamba_scan": scan_reading}
 
+
+
+#: phase 18: the other families trained at full width — (arch, cut of the
+#: full-width run, cut of the float32 hold, its parameters, of the hold's,
+#: batch rows); cuts as in :data:`FAMILIES`.  16 B a parameter (float32
+#: weights, gradients and two AdamW moments) decides each depth: qwen3-moe
+#: 4 of 48 layers, jamba one Mamba + MLP and the attention + MLP layer (one
+#: of its MoE layers is 9.66 B parameters, 155 GB to train), kimi its dense
+#: layer (the 384-expert layer is 16.9 B), qwen2.5-14b 6 of 48; the rest
+#: whole.
+TRAIN_FAMILIES = (
+    ("qwen3-moe-30b-a3b", (range(4), 0, 1), FIRST_TWO, 3_114_813_440,
+     1_868_572_672, 4),
+    ("jamba-1.5-large-398b", ((2, 4), 0, 2), ((2, 4), 0, 2), 2_853_068_800,
+     2_853_068_800, 2),
+    ("kimi-k2-1t-a32b", (range(1), 0, 1), (range(1), 0, 1), 2_860_798_976,
+     2_860_798_976, 4),
+    ("stablelm-3b", None, FIRST_TWO, 2_795_443_200, 416_179_200, 4),
+    ("qwen2.5-14b", (range(6), 0, 1), FIRST_TWO, 3_208_752_128,
+     2_107_677_696, 4),
+    ("internvl2-1b", None, FIRST_TWO, 493_803_392, 165_730_944, 4),
+    ("musicgen-large", None, FIRST_TWO, 3_255_177_216, 167_792_640, 4),
+)
+#: steps of each phase-18 run and of every hold (phases 14 and 18); the
+#: holds' batch rows and schedule; text tokens a row (after internvl2's
+#: 256 vision embeddings)
+TRAIN_STEPS, HOLD_ROWS, TRAIN_SEQ = 3, 2, 1024
+HOLD_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+#: the families the launcher trains (their smoke configs, 6 steps)
+LAUNCH_ARCHS = ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b")
+
+
+def run_train_families(dev) -> dict:
+    """Phase 18 on ``dev``: the other families trained through
+    ``make_train_step`` / ``init_opt_state`` / ``make_batch``
+    (:data:`TRAIN_FAMILIES`): (a) a float32 cut of each at full width held
+    to the plain versions (:func:`hold_train`; qwen3-moe's also without
+    remat: the recompute routes as the forward did); (b) each at full
+    width (:func:`train_full`), with a traced qwen3-moe step; (c)
+    ``launch.train.main`` on :data:`LAUNCH_ARCHS`' smoke configs.  Returns
+    the launches of (b) and (c)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import count_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+
+    # -- 18a: a float32 cut of each at full width, kernels vs plain -------
+    for seed, (arch, _, hold, _, n_hold, _) in enumerate(TRAIN_FAMILIES):
+        n = count_params(cut_layers(get_config(arch), hold))
+        check(n == n_hold, f"phase18 {arch} hold: {n} parameters")
+        hold_train(dev, "phase18", arch, hold, 180 + seed, seed,
+                   remat_none=arch == "qwen3-moe-30b-a3b")
+    print(f"phase18a took {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 18b: full width ---------------------------------------------------
+    t0 = time.perf_counter()
+    for seed, (arch, cut, _, n_params, _, rows) in enumerate(
+            TRAIN_FAMILIES):
+        n = count_params(cut_layers(get_config(arch), cut))
+        check(n == n_params, f"phase18 {arch}: {n} parameters")
+        launches.update(train_full(dev, "phase18", arch, cut, 190 + seed,
+                                   TRAIN_STEPS, rows,
+                                   trace=arch == "qwen3-moe-30b-a3b"))
+    print(f"phase18b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 18c: the launcher on the other families ---------------------------
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for arch in LAUNCH_ARCHS:
+        d = tempfile.mkdtemp(prefix="phase18-", dir=os.path.join(ROOT,
+                                                                 "build"))
+        buf = io.StringIO()
+        try:
+            reset_counts()
+            with contextlib.redirect_stdout(buf):
+                launch_train.main(["--arch", arch, "--steps", "6",
+                                   "--ckpt-dir", d])
+            got = kernel_counts()
+            launches.update(got)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        res = json.loads(buf.getvalue())
+        check(res["steps"] == 6 and math.isfinite(res["first_loss"])
+              and math.isfinite(res["final_loss"]),
+              f"phase18 launcher {arch}: {res}")
+        kinds = {"flash_attention" if spec.mixer == "attn" else "mamba_scan"
+                 for spec in get_config(arch, smoke=True).layout}
+        check(got["cover_dp"] > 0 and all(got[k] > 0 for k in kinds),
+              f"phase18 launcher {arch}: launches {got}")
+        print(f"phase18 launch.train.main(['--arch', '{arch}', '--steps', "
+              f"'6']) on the default device: arch {res['arch']}, first loss "
+              f"{res['first_loss']:.4f}, final loss {res['final_loss']:.4f},"
+              f" interrupts handled {res['interrupts_handled']}; launches "
+              f"{got}")
+    print(f"phase18c took {time.perf_counter() - t0:.1f} s")
+    print(f"phase18 launches: {dict(launches)}; took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": dict(launches)}
 
 if __name__ == "__main__":
     sys.exit(main())

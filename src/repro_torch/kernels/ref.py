@@ -13,8 +13,12 @@
 Each follows the reference's order of operations and its ``-inf`` guards
 (``safe_m``, the ``isfinite`` masks, ``max(l, 1e-37)``), so the CPU tests
 can hold them to the JAX package at its own tolerances.  The chunked
-versions assert chunk divisibility as the reference does; only the CUDA
-kernels take ragged shapes.
+scan asserts chunk divisibility as the reference does.  The chunked
+attention takes a last block shorter than its chunk (the reference
+asserts there): the kernel's forward takes any length, and its backward
+is :func:`flash_bwd_chunked` (a train step over a VLM prefix of 256 and
+1024 tokens is 1280 long, against chunks of 1024); where the chunks
+divide, the blocks and the results are the reference's.
 """
 
 from __future__ import annotations
@@ -44,6 +48,12 @@ def _mask(sq: int, skv: int, q_start: int, t_start: int, causal: bool,
     if kv_len is not None:
         mask &= tpos < kv_len
     return mask
+
+
+def _blocks(n: int, chunk: int) -> int:
+    """Blocks of ``chunk`` over ``n`` positions, the last one shorter
+    where ``chunk`` does not divide ``n``."""
+    return -(-n // chunk)
 
 
 def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -96,9 +106,7 @@ def flash_fwd_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     g = _gqa_fold(q, k)
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, skv)
-    assert sq % q_chunk == 0 and skv % kv_chunk == 0, (sq, q_chunk, skv,
-                                                       kv_chunk)
-    nq, nk = sq // q_chunk, skv // kv_chunk
+    nq, nk = _blocks(sq, q_chunk), _blocks(skv, kv_chunk)
     skip = (causal_skip and causal and kv_len is None and q_offset == 0
             and q_chunk == kv_chunk)
     scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
@@ -107,18 +115,19 @@ def flash_fwd_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lses: List[torch.Tensor] = []
     for iq in range(nq):
         q_blk = qg[:, iq * q_chunk:(iq + 1) * q_chunk]
-        m = torch.full((b, q_chunk, kv, g), NEG_INF, dtype=torch.float32,
+        qn = q_blk.shape[1]
+        m = torch.full((b, qn, kv, g), NEG_INF, dtype=torch.float32,
                        device=q.device)
-        l = torch.zeros((b, q_chunk, kv, g), dtype=torch.float32,
+        l = torch.zeros((b, qn, kv, g), dtype=torch.float32,
                         device=q.device)
-        acc = torch.zeros((b, q_chunk, kv, g, hd), dtype=torch.float32,
+        acc = torch.zeros((b, qn, kv, g, hd), dtype=torch.float32,
                           device=q.device)
         for ik in range(iq + 1 if skip else nk):
             k_blk = k[:, ik * kv_chunk:(ik + 1) * kv_chunk]
             v_blk = v[:, ik * kv_chunk:(ik + 1) * kv_chunk]
             s = torch.einsum("bqkgh,btkh->bqkgt", q_blk, k_blk).float() \
                 * scale
-            mask = _mask(q_chunk, kv_chunk, q_offset + iq * q_chunk,
+            mask = _mask(qn, k_blk.shape[1], q_offset + iq * q_chunk,
                          ik * kv_chunk, causal, kv_len, q.device)
             s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -156,9 +165,7 @@ def flash_bwd_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = _gqa_fold(q, k)
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, skv)
-    assert sq % q_chunk == 0 and skv % kv_chunk == 0, (sq, q_chunk, skv,
-                                                       kv_chunk)
-    nq, nk = sq // q_chunk, skv // kv_chunk
+    nq, nk = _blocks(sq, q_chunk), _blocks(skv, kv_chunk)
     scale = 1.0 / (hd ** 0.5)
 
     qg = q.reshape(b, sq, kv, g, hd)
@@ -174,15 +181,16 @@ def flash_bwd_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_blk, lse_blk, delta_blk = qg[:, rows], lseg[:, rows], delta[:, rows]
         dof = dog[:, rows].float()
         qf = q_blk.float()
-        dq_blk = torch.zeros((b, q_chunk, kv, g, hd), dtype=torch.float32,
+        dq_blk = torch.zeros(q_blk.shape, dtype=torch.float32,
                              device=q.device)
         for ik in range(nk):
             cols = slice(ik * kv_chunk, (ik + 1) * kv_chunk)
             k_blk, v_blk = k[:, cols], v[:, cols]
             s = torch.einsum("bqkgh,btkh->bqkgt", q_blk, k_blk).float() \
                 * scale
-            mask = _mask(q_chunk, kv_chunk, q_offset + iq * q_chunk,
-                         ik * kv_chunk, causal, kv_len, q.device)
+            mask = _mask(q_blk.shape[1], k_blk.shape[1],
+                         q_offset + iq * q_chunk, ik * kv_chunk, causal,
+                         kv_len, q.device)
             p = torch.where(mask[None, :, None, None, :],
                             torch.exp(s - lse_blk[..., None]), 0.0)
             dv[:, cols] += torch.einsum("bqkgt,bqkgh->btkh", p, dof)
