@@ -225,7 +225,34 @@ system's real sizes and holds every result to the host:
    walls, positions/s, share of the bf16 peak (6 x active parameters),
    launches and peak memory; and ``launch.train.main`` on the smoke
    configs of qwen3-moe and jamba (``cover_dp`` and each family's
-   sequence kernel launched) ("phase18" lines).
+   sequence kernel launched) ("phase18" lines);
+19. the port's five examples (``repro_torch.examples``) through their
+   ``main``, with no device flag: (a) ``quickstart``, ``provision_cluster``
+   (48 h, 200 pods) and ``run_scenario`` at its full-size defaults (36 h,
+   150 -> 300 pods, 800 offerings) and under each README and docstring
+   flag set (``DECISION_EXAMPLES``), each on the default backend (the
+   card) and under ``numpy`` in one process, ``--replicas 256`` also
+   under ``torch:fused``: stdouts equal once the walls and rates are
+   masked, traces byte-equal, every replay assertion holding, no fused
+   fallback solve, ``cover_dp`` / ``fused_rows`` launched by every run
+   that solves (``karpenter_like`` settles without a DP); (b)
+   ``serve_batched`` of all ten archs at its defaults (batch 4, prompt
+   32, 16 new tokens, smoke configs): launches = the attention and Mamba
+   layers of one prefill, continuations ids in the vocabulary, every
+   launch of the run (bf16: ``flash_attention``'s wgmma path, down to hd
+   8) held to its plain version on its own inputs with its columns past
+   hd unwritten, the example's prefill through the plain versions
+   reported, and a float32 copy of each config held to the plain
+   versions (logits within 2e-4, tokens equal); (c)
+   ``train_elastic_spot`` at its defaults (lm-100m, 200 steps of B 2 x S
+   128, checkpoints every 25 steps, a market check every 10): finite
+   losses, every restore resuming at its checkpoint's step with the
+   parameters and AdamW state bitwise as saved, pods >= the request
+   after every event,
+   ``flash_attention`` launches = steps x 12 layers x ``remat_passes``;
+   the warm median step, recovery, save and restore seconds, the peak
+   memory, the first and final loss and a ``torch.profiler`` breakdown of
+   one more step ("phase19" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -237,7 +264,8 @@ in ``launches_cost``, phase 16's launches in ``launches_scale`` and its
 readings at the new widths in ``scale``, phase 17's serve launches in
 ``launches_families`` and its readings at the families' shapes in
 ``families``, phase 18's training launches in
-``launches_train_families``); the last line
+``launches_train_families``, phase 19's in ``launches_examples``); the
+last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -466,12 +494,12 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-18 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-19 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
     13 in :func:`run_moe`, 14 in :func:`run_train`, 15 in
     :func:`run_cost`, 16 in :func:`run_scale`, 17 in
-    :func:`run_families`, 18 in :func:`run_train_families`); returns the
-    kernel record."""
+    :func:`run_families`, 18 in :func:`run_train_families`, 19 in
+    :func:`run_examples`); returns the kernel record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -718,7 +746,10 @@ def run(dev) -> dict:
     scale = run_scale(dev)
     families = run_families(dev)
     train_families = run_train_families(dev)
+    examples = run_examples(dev)
     for k in kernels:
+        k["launches_examples"] = examples.get(k["name"], 0)
+        k["launches"] += k["launches_examples"]
         k["launches_sim"] = sim.get(k["name"], 0)
         k["launches_policies"] = policies.get(k["name"], 0)
         k["launches"] += k["launches_sim"] + k["launches_policies"]
@@ -4083,6 +4114,515 @@ def run_train_families(dev) -> dict:
     print(f"phase18 launches: {dict(launches)}; took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": dict(launches)}
+
+
+#: phase 19: the port's examples as the README and their docstrings run
+#: them (``repro_torch.examples``: ``examples/`` imports the JAX package),
+#: the decision examples at their full-size defaults
+DECISION_EXAMPLES = (
+    ("quickstart", ()),
+    ("provision_cluster", ()),
+    ("run_scenario", ()),
+    ("run_scenario", ("--policy", "kubepacs_risk:12")),
+    ("run_scenario", ("--replicas", "256")),
+    ("run_scenario", ("--workload", "diurnal")),
+    ("run_scenario", ("--workload", "bursty")),
+    ("run_scenario", ("--workload", "flash", "--policy", "karpenter_like")),
+    ("run_scenario", ("--faults", "combined", "--policy", "hardened")),
+    ("run_scenario", ("--faults", "feed:0.5")),
+    ("run_scenario", ("--regions", "3")),
+    ("run_scenario", ("--regions", "3:0.8", "--faults", "region",
+                      "--policy", "hardened")),
+)
+#: the invocations that settle without a cover DP: ``karpenter_like``
+#: never solves
+NO_DP = (("run_scenario", ("--workload", "flash", "--policy",
+                           "karpenter_like")),)
+#: the float32 hold's bar on serve_batched's logits (phases 9-10's)
+SERVE_HOLD_BAR = 2e-4
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """``module.name`` replaced by a wrapper that keeps, in the list
+    yielded, each instance made (a class) or each call's positional
+    arguments (a function)."""
+    orig = getattr(module, name)
+    made = []
+    if isinstance(orig, type):
+        class Recorded(orig):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                made.append(self)
+        new = Recorded
+    else:
+        def new(*args, **kw):
+            made.append(args)
+            return orig(*args, **kw)
+    setattr(module, name, new)
+    try:
+        yield made
+    finally:
+        setattr(module, name, orig)
+
+
+def state_tensors(tree) -> list:
+    """The tensors of a training state (modules, dicts, sequences), in a
+    fixed order."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, torch.nn.Module):
+        return [t for _, t in sorted(tree.state_dict().items())]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in state_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in state_tensors(x)]
+    return []
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Every ``flash_attention_cuda`` and ``selective_scan_cuda`` call the
+    models make (through ``kernels.ops``) while the block runs, kept in the
+    list yielded as ``(name, args, kwargs, outputs)``, inputs copied before
+    the call and outputs after it.  The calls launch and count as before."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    calls = []
+
+    def copied(x):     # dense, as the relaunch reads it
+        return (x.detach().clone(memory_format=torch.contiguous_format)
+                if isinstance(x, torch.Tensor) else x)
+
+    def keep(name, fn):
+        def call(*args, **kw):
+            ins = [copied(a) for a in args]
+            kws = {k: copied(v) for k, v in kw.items()}
+            out = fn(*args, **kw)
+            calls.append((name, ins, kws, tuple(o.clone() for o in out)))
+            return out
+        return call
+
+    saved = ops.flash_attention_cuda, ops.selective_scan_cuda
+    ops.flash_attention_cuda = keep("flash_attention", saved[0])
+    ops.selective_scan_cuda = keep("mamba_scan", saved[1])
+    try:
+        yield calls
+    finally:
+        ops.flash_attention_cuda, ops.selective_scan_cuda = saved
+
+
+def hold_kernel_calls(torch, calls, tag) -> dict:
+    """Each call kept by :func:`kernel_calls` held to its plain version on
+    its own inputs: ``flash_attention`` to ``ref.flash_fwd_chunked`` in one
+    block (o and lse; -inf rows equal), and relaunched into a NaN-filled
+    buffer one padded head row longer, which must show every column past hd
+    unwritten and the same o and lse; ``mamba_scan`` to
+    ``ref.selective_scan_ref`` (y and h_final).  The bar is
+    :data:`ATTN_TOL` / :data:`SCAN_TOL` of the call's dtype; on a bfloat16
+    output (o, y) it is scaled by the larger of 1 and the plain output's
+    largest magnitude, since bfloat16 rounds to 8 bits of mantissa at the
+    value's own scale (phase 8's unit-scale inputs keep the factor at 1;
+    lse and h_final are float32 and held to the bar as it is).  Returns,
+    by kernel, ``(calls, largest err / its bar, shapes)``."""
+    from repro_torch.core.cuda_lib import library
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import DTYPES
+
+    dname = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    seen = {}
+
+    def err(a, b):
+        check(torch.equal(torch.isneginf(a), torch.isneginf(b)),
+              f"{tag}: -inf entries differ")
+        fin = torch.isfinite(b)
+        return (float((a[fin].float() - b[fin].float()).abs().max())
+                if bool(fin.any()) else 0.0)
+
+    def scale(t):
+        return max(1.0, float(t.float().abs().max())) if t.numel() else 1.0
+
+    for name, args, kw, out in calls:
+        if name == "flash_attention":
+            q, k, v = args
+            tol = ATTN_TOL[dname[q.dtype]]
+            b, sq, h, hd = q.shape
+            skv, kvh = k.shape[1], k.shape[2]
+            want = ref.flash_fwd_chunked(q, k, v, q_chunk=max(sq, 1),
+                                         kv_chunk=max(skv, 1), **kw)
+            kv_len = kw.get("kv_len")
+            kv_lim = skv if kv_len is None else max(0, min(int(kv_len), skv))
+            n = out[0].numel()
+            buf = torch.full((n + 256,), float("nan"), dtype=q.dtype,
+                             device=q.device)
+            lse_b = torch.empty_like(out[1])
+            with torch.cuda.device(q.device):
+                rc = library().flash_attention_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+                    lse_b.data_ptr(), b, sq, skv, h, kvh, hd,
+                    int(kw.get("q_offset", 0)), kv_lim,
+                    int(kw.get("causal", True)), DTYPES[q.dtype],
+                    torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.synchronize()
+            check(rc == 0 and torch.equal(buf[:n].view_as(out[0]), out[0])
+                  and torch.equal(lse_b, out[1])
+                  and bool(torch.isnan(buf[n:]).all()),
+                  f"{tag} flash_attention {tuple(q.shape)}: a column past hd "
+                  f"{hd} was written, or a second launch differs")
+            shape = f"B {b} Sq {sq} Skv {skv} H {h} KV {kvh} hd {hd}"
+        else:
+            x, dt, A, Bm, Cm, D = args[:6]
+            tol = SCAN_TOL[dname[x.dtype]]
+            want = ref.selective_scan_ref(*args, **kw)
+            torch.cuda.synchronize()
+            shape = (f"B {x.shape[0]} S {x.shape[1]} di {x.shape[2]} "
+                     f"N {A.shape[1]}")
+        shape += f" {dname[args[0].dtype]}"
+        ratios = [err(o, w) / (tol * (scale(w) if o.dtype == torch.bfloat16
+                                      else 1.0))
+                  for o, w in zip(out, want)]
+        worst = max(ratios)
+        check(out[0].dtype == args[0].dtype and worst <= 1.0,
+              f"{tag} {name} {shape}: err / bar {ratios} (bar {tol})")
+        n_calls, w, shapes = seen.get(name, (0, 0.0, []))
+        seen[name] = (n_calls + 1, max(w, worst),
+                      shapes + ([shape] if shape not in shapes else []))
+    return seen
+
+
+def example_stdout(torch, module, argv):
+    """``module.main(argv)``'s stdout, its wall (to a synchronised card)
+    and its return value."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = module.main(list(argv))
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0, ret
+
+
+def run_examples(dev) -> dict:
+    """Phase 19 on ``dev``: the port's five examples through their
+    ``main`` with no device flag.  (a) Each decision invocation of
+    :data:`DECISION_EXAMPLES` on the default backend (``torch``, the card)
+    and under ``numpy`` (``--replicas 256`` also under ``torch:fused``):
+    stdouts equal with the walls masked, traces byte-equal, every replay
+    assertion holding, no fused fallback solve; (b) ``serve_batched`` of
+    every arch at its defaults, launches = the attention and Mamba layers
+    of one prefill, each launch held to its plain version on its own
+    inputs, and a float32 copy of each config held to the plain versions;
+    (c) ``train_elastic_spot`` at its defaults (lm-100m, 200 steps), each
+    restore bitwise the saved state.  Returns the launches of each kernel
+    in the examples' own runs (not the holds' or the traced step's)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.core import backend as bmod
+    from repro_torch.core import cover_dp as cdp
+    from repro_torch.core import fused_rows as fr
+    from repro_torch.core import score as sc
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.examples import (masked_walls, provision_cluster,
+                                      quickstart, run_scenario,
+                                      serve_batched, train_elastic_spot)
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.transformer import remat_passes
+    from repro_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    launches = collections.Counter()
+    modules = {"quickstart": quickstart, "provision_cluster":
+               provision_cluster, "run_scenario": run_scenario}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="phase19-", dir=os.path.join(ROOT, "build"))
+
+    # -- 19a: the decision examples, the card against numpy ---------------
+    def drive(spec, name, flags, tag):
+        argv = list(flags)
+        trace = None
+        if name == "run_scenario":
+            trace = os.path.join(d, f"{tag}-{spec.replace(':', '_')}.jsonl")
+            argv += ["--trace", trace]
+        saved = bmod._DEFAULT
+        bmod.set_backend(spec)
+        cdp.cover_dp.launches = fr.fused_rows.launches = 0
+        sc.score.launches = 0
+        try:
+            with recorded(run_scenario, "FleetSim") as fleets:
+                text, wall, _ = example_stdout(torch, modules[name], argv)
+        finally:
+            bmod._DEFAULT = saved
+        got = (cdp.cover_dp.launches, fr.fused_rows.launches,
+               sc.score.launches)
+        data = None
+        if trace is not None and os.path.exists(trace):
+            with open(trace, "rb") as f:
+                data = f.read()
+        return dict(text=text, masked=masked_walls(text, trace), data=data,
+                    wall=wall, got=got, fleets=fleets)
+
+    t0 = time.perf_counter()
+    for i, (name, flags) in enumerate(DECISION_EXAMPLES):
+        label = " ".join((name, *flags))
+        specs = ("torch", "numpy") + (("torch:fused",)
+                                      if "--replicas" in flags else ())
+        runs = {spec: drive(spec, name, flags, f"{i:02d}") for spec in specs}
+        ref = runs["numpy"]
+        check(ref["got"] == (0, 0, 0),
+              f"phase19a {label}: numpy launched {ref['got']}")
+        check(name != "run_scenario" or "--workload" in flags
+              or ref["data"], f"phase19a {label}: no trace recorded")
+        for spec in specs[:1] + specs[2:]:
+            run = runs[spec]
+            check(run["masked"] == ref["masked"],
+                  f"phase19a {label} {spec}: stdout differs from numpy's:\n"
+                  f"{run['text']}\n---\n{ref['text']}")
+            check(run["data"] == ref["data"],
+                  f"phase19a {label} {spec}: trace differs from numpy's")
+            cover, fused, score = run["got"]
+            check(score == 0, f"phase19a {label} {spec}: {score} "
+                  "standalone score launches")
+            if (name, flags) not in NO_DP:
+                check(cover + fused > 0, f"phase19a {label} {spec}: "
+                      "solved nothing on the card")
+            launches["cover_dp"] += cover
+            launches["fused_rows"] += fused
+        extra = ""
+        if "torch:fused" in runs:
+            run = runs["torch:fused"]
+            (fleet,) = run["fleets"]
+            stats = fleet.stats()
+            check(stats["device_cache_fallback_solves"] == 0
+                  and fleet.solve_batch.backend.fused_records > 0
+                  and run["got"][1] > 0,
+                  f"phase19a {label} torch:fused: fused records "
+                  f"{fleet.solve_batch.backend.fused_records}, launches "
+                  f"{run['got']}, {stats}")
+            extra = (f"; torch:fused wall {run['wall']:.3f} s (fleet "
+                     f"{fleet.wall_seconds:.3f} s, cover_dp "
+                     f"{run['got'][0]} fused_rows {run['got'][1]}, fused "
+                     f"records {fleet.solve_batch.backend.fused_records}, "
+                     f"fallback solves "
+                     f"{stats['device_cache_fallback_solves']}, verify "
+                     f"solves {stats['device_cache_verify_solves']})")
+            fleets = {spec: runs[spec]["fleets"][0].wall_seconds
+                      for spec in specs}
+            extra += "; fleet walls s " + ", ".join(
+                f"{spec} {w:.3f}" for spec, w in fleets.items())
+        dp = ("settles without a DP" if runs["torch"]["got"] == (0, 0, 0)
+              else f"cover_dp {runs['torch']['got'][0]} fused_rows "
+                   f"{runs['torch']['got'][1]}")
+        same = (f"stdout (walls masked) and trace ({len(ref['data'])} B)"
+                if ref["data"] else "stdout (walls masked)")
+        print(f"phase19a {label}: torch wall {runs['torch']['wall']:.3f} s "
+              f"({dp}), numpy wall {ref['wall']:.3f} s; {same} equal to "
+              f"numpy's{extra}")
+        for line in runs["torch"]["text"].splitlines():
+            print(f"phase19a | {line}")
+    print(f"phase19a took {time.perf_counter() - t0:.1f} s")
+
+    # -- 19b: serve_batched, every arch ----------------------------------
+    t0 = time.perf_counter()
+    held_calls = {}
+    for arch in list_archs():
+        cfg = get_config(arch, smoke=True)
+        attn = sum(spec.mixer == "attn" for spec in cfg.layout)
+        want = {"flash_attention": attn, "mamba_scan": cfg.n_layers - attn}
+        reset_counts()
+        with recorded(serve_batched, "generate") as generated, \
+                kernel_calls() as calls:
+            text, wall, toks = example_stdout(torch, serve_batched,
+                                              ["--arch", arch])
+        got = kernel_counts()
+        ((ecfg, eparams, (inputs, S), N),) = generated
+        B = toks.shape[0]
+        check(got["flash_attention"] == want["flash_attention"]
+              and got["mamba_scan"] == want["mamba_scan"]
+              and len(calls) == sum(want.values()),
+              f"phase19b {arch}: launches {got} ({len(calls)} kept), "
+              f"expected {want}")
+        check(toks.shape == (B, N) and toks.min() >= 0
+              and toks.max() < cfg.vocab_size,
+              f"phase19b {arch}: continuations {toks.tolist()}")
+        pre = re.search(r"prefill: batch=\d+ len=(\d+) in ([\d.]+)s", text)
+        dec = re.search(r"decoded \d+ tokens/seq in ([\d.]+)s \(([\d.]+) "
+                        r"tok/s", text)
+        check(pre is not None and dec is not None and int(pre.group(1)) == S,
+              f"phase19b {arch}: stdout {text}")
+        # each kernel call of the run held to its plain version on its own
+        # inputs (the example's dtype: wgmma for bf16 attention)
+        seen = hold_kernel_calls(torch, calls, f"phase19b {arch}")
+        for k, (n, w, shapes) in seen.items():
+            hn, hw, hs = held_calls.get(k, (0, 0.0, []))
+            held_calls[k] = (hn + n, max(hw, w),
+                             hs + [f"{arch}: {sh}" for sh in shapes])
+        # the example's own prefill (its params, prompt and dtype) through
+        # the plain versions: reported, not held
+        with torch.no_grad():
+            lk, _ = prefill(eparams, ecfg, inputs, max_len=S + N)
+            lp, _ = prefill(eparams, dataclasses.replace(
+                ecfg, attention_impl="chunked"), inputs, max_len=S + N)
+        ex_diff = float((lk.float() - lp.float()).abs().max())
+        ex_same = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+        ex_top = float(lk.float().abs().max())
+        del calls, eparams, lk, lp
+        # the float32 hold: a float32 copy of the config, the example's
+        # prompt, kernels against the plain versions
+        hcfg = dataclasses.replace(ecfg, dtype="float32")
+        params = init_params(hcfg, torch.Generator(device=dev).manual_seed(
+            0), dev)
+        hinputs = {k: (t.float() if t.is_floating_point() else t)
+                   for k, t in inputs.items()}
+        reset_counts()
+        with torch.no_grad():
+            outs_k, toks_k = greedy(hcfg, params, hinputs, N)
+            held = kernel_counts()
+            outs_p, toks_p = greedy(dataclasses.replace(
+                hcfg, attention_impl="chunked"), params, hinputs, N)
+        check(kernel_counts() == held and held["flash_attention"]
+              == want["flash_attention"]
+              and held["mamba_scan"] == want["mamba_scan"],
+              f"phase19b {arch} hold: launches {held}, then "
+              f"{kernel_counts()}")
+        check(all(bool(torch.isfinite(a).all()) for a in outs_k),
+              f"phase19b {arch} hold: a logit is not finite")
+        diff = max(max_abs_err(a.float().cpu().numpy(),
+                               b.float().cpu().numpy())
+                   for a, b in zip(outs_k, outs_p))
+        check(diff <= SERVE_HOLD_BAR,
+              f"phase19b {arch} hold: logits differ by {diff}")
+        check(torch.equal(toks_k, toks_p), f"phase19b {arch} hold: tokens "
+              f"{toks_k.tolist()} vs {toks_p.tolist()}")
+        for k in ("flash_attention", "mamba_scan"):
+            launches[k] += got[k]
+        print(f"phase19b serve_batched --arch {arch} ({card}): batch {B}, "
+              f"prompt {S} positions, {N} new tokens, {ecfg.dtype}, prefill "
+              f"{pre.group(2)} s, decode {dec.group(1)} s "
+              f"({dec.group(2)} tok/s), wall {wall:.3f} s; launches {got}; "
+              f"continuations finite ids < {cfg.vocab_size}; each launch "
+              f"held to its plain version on its own inputs (largest err / "
+              f"bar " + ", ".join(f"{k} {w:.3f} over {n}"
+                                  for k, (n, w, _) in seen.items())
+              + f"); {ecfg.dtype} prefill vs the plain versions: max logit "
+              f"diff {ex_diff:.4e} (largest |logit| {ex_top:.4f}), argmax "
+              f"agreement {ex_same:.4f} (reported, not held); float32 hold: "
+              f"max logit diff {diff:.3e} (bar {SERVE_HOLD_BAR}), tokens "
+              f"equal {tuple(toks_k.shape)}")
+        del params, outs_k, outs_p
+        release(torch)
+    for k, (n, w, shapes) in held_calls.items():
+        print(f"phase19b {k}: {n} launches held at the example's shapes, "
+              f"largest err / bar {w:.4f}; shapes " + "; ".join(shapes))
+    print(f"phase19b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 19c: train_elastic_spot at its defaults -------------------------
+    t0 = time.perf_counter()
+    walls = {"save": [], "restore": []}
+    restored = []
+    ckpt_dir = os.path.join(d, "ckpt")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with timed_checkpoints(torch, walls), recorded(
+                train_elastic_spot, "ElasticSpotTrainer") as trainers:
+            restore = ckpt.restore_checkpoint
+
+            def restore_at(ckpt_dir, params, opt_state=None, *args, **kw):
+                # the live state, which the restore reads only as a
+                # template, is what the emergency checkpoint saved: the
+                # restored copy, in storage of its own, must equal it
+                # bitwise
+                before = state_tensors((params, opt_state))
+                out = restore(ckpt_dir, params, opt_state, *args, **kw)
+                after = state_tensors(out[:2])
+                same = len(after) == len(before) and all(
+                    a.dtype == b.dtype and a.data_ptr() != b.data_ptr()
+                    and torch.equal(a, b) for a, b in zip(after, before))
+                restored.append((int(out[2]["step"]), trainers[0].step,
+                                 len(before), same))
+                return out
+
+            ckpt.restore_checkpoint = restore_at
+            try:
+                text, wall, out = example_stdout(
+                    torch, train_elastic_spot, ["--ckpt-dir", ckpt_dir])
+            finally:
+                ckpt.restore_checkpoint = restore
+        peak = torch.cuda.max_memory_allocated(dev)
+        got = kernel_counts()
+        (tr,) = trainers
+        nbytes = max(sum(os.path.getsize(os.path.join(root, f))
+                         for f in files)
+                     for root, _, files in os.walk(ckpt_dir) if files)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    losses = out["losses"]
+    steps, pods = tr.ecfg.total_steps, tr.request.pods
+    handled = [e for e in out["events"]
+               if e["event"] in ("interrupt", "straggler")]
+    check(out["steps"] == steps and len(losses) == steps
+          and all(math.isfinite(x) for x in losses),
+          f"phase19c: steps {out['steps']}, {len(losses)} losses")
+    check(all(e["detail"]["pods_after"] >= pods for e in handled)
+          and tr.pool.total_pods >= pods,
+          f"phase19c: a pool below {pods} pods after an event")
+    check([r[0] for r in restored] == [e["step"] for e in handled]
+          and all(m == at and n > 0 and same
+                  for m, at, n, same in restored),
+          f"phase19c: restores (checkpoint step, trainer step, tensors, "
+          f"bitwise equal) {restored} against events "
+          f"{[(e['step'], e['event']) for e in handled]}")
+    want = steps * tr.cfg.n_layers * remat_passes(tr.cfg)
+    check(got["flash_attention"] == want and got["mamba_scan"] == 0
+          and got["cover_dp"] > 0,
+          f"phase19c: launches {got}, expected {want} flash_attention")
+    launches.update(got)
+    head, tail = np.mean(losses[:10]), np.mean(losses[-10:])
+    print(f"phase19c train_elastic_spot ({card}): {tr.cfg.name} "
+          f"({sum(p.numel() for p in tr.params.parameters())} params), "
+          f"{steps} steps of B {tr.ecfg.batch_rows} x S {tr.ecfg.seq_len}; "
+          f"loss first {losses[0]:.4f} final {losses[-1]:.4f} (mean of the "
+          f"first ten {head:.4f}, last ten {tail:.4f}: "
+          f"{'falls' if tail < head else 'does not fall'}); warm median "
+          f"step {median(tr._step_times[1:]) * 1e3:.3f} ms (first "
+          f"{tr._step_times[0] * 1e3:.3f} ms); events "
+          f"{[(e['step'], e['event']) for e in out['events']]}, pods after "
+          f"each {[e['detail']['pods_after'] for e in handled]}, restores "
+          f"at {[r[0] for r in restored]} resumed there with parameters "
+          f"and AdamW state bitwise as saved "
+          f"({restored[0][2] if restored else 0} tensors); recovery s "
+          f"{[round(x, 3) for x in out['recovery_times']]}; checkpoint "
+          f"{nbytes} B, save s {[round(x, 3) for x in walls['save']]}, "
+          f"restore s {[round(x, 3) for x in walls['restore']]}; peak "
+          f"device memory {peak} B; launches {got}; wall {wall:.3f} s")
+    for line in text.splitlines():
+        print(f"phase19c | {line}")
+    # where a warm step's time goes: one more step of the trained model
+    batch = make_batch(tr.cfg, tr.dcfg, step=tr.step, shard=0,
+                       world=tr.world, batch=tr.ecfg.batch_rows,
+                       seq=tr.ecfg.seq_len)
+    reset_counts()
+    step_ms, busy, top = traced(torch, lambda: tr._train_step(
+        tr.params, tr.opt_state, batch))
+    print(f"phase19c traced step: wall {step_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms (idle share {1 - busy / step_ms:.4f}); by "
+          "kernel: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:6]))
+    del tr, trainers
+    release(torch)
+    print(f"phase19c took {time.perf_counter() - t0:.1f} s")
+    print(f"phase19 launches: {dict(launches)}; took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches)
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -11,7 +11,6 @@ Two halves (DESIGN.md §16):
   schema.
 """
 
-from .._lazy import import_lazy
 from .faults import (FAULT_KINDS, FEED_KINDS, REGION_KINDS, SOLVER_KINDS,
                      ChaosController, Fault, fault_storm, region_storm)
 
@@ -26,5 +25,6 @@ __all__ = ["FAULT_KINDS", "FEED_KINDS", "REGION_KINDS", "SOLVER_KINDS",
 
 def __getattr__(name):
     if name in _GUARD_SYMBOLS:
-        return getattr(import_lazy(".guard", __name__), name)
+        from . import guard
+        return getattr(guard, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,7 +13,6 @@ Layered to stay cycle-free with the rest of the package:
   back here via the scenario schema.
 """
 
-from .._lazy import import_lazy
 from .config import RegionConfig
 from .market import (RegionalMarketOverlay, apply_hazard_scale,
                      egress_row_costs, hazard_scale_rows, make_overlay,
@@ -31,5 +30,6 @@ __all__ = ["RegionConfig", "RegionalMarketOverlay", "apply_hazard_scale",
 
 def __getattr__(name):
     if name in _POLICY_SYMBOLS:
-        return getattr(import_lazy(".policy", __name__), name)
+        from . import policy
+        return getattr(policy, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -14,7 +14,6 @@ keep the package importable from either direction without a cycle.
 
 from __future__ import annotations
 
-from .._lazy import import_lazy
 from .perf_model import (ServingProfile, ServingTable, analytic_token_s,
                          cache_stats, clear_caches, default_profile,
                          default_slo_ms, reference_qps_per_pod,
@@ -30,7 +29,8 @@ _SIM_NAMES = ("DEFAULT_RECOVERY_HOURS", "PoolTimeline", "ServeReport",
 
 def __getattr__(name: str):
     if name in _SIM_NAMES:
-        return getattr(import_lazy(".sim", __name__), name)
+        from . import sim
+        return getattr(sim, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -55,7 +55,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .._lazy import import_lazy
 from ..core.efficiency import (CandidateItem, NodePool, Request,
                                decision_metrics, pool_capacity_rate)
 from ..core.gss import bracketed_gss
@@ -528,14 +527,12 @@ def make_policy(spec: str, tolerance: float = 0.01,
                                 clock=clock)
     if spec == "hardened":
         # lazy: repro_torch.chaos.guard imports this module (the Policy base)
-        HardenedPolicy = import_lazy("..chaos.guard",
-                                     __package__).HardenedPolicy
+        from ..chaos.guard import HardenedPolicy
         return HardenedPolicy(tolerance=tolerance, ttl_hours=ttl_hours,
                               clock=clock, region=region)
     if spec == "kubepacs_region":
         # lazy: repro_torch.region.policy imports this module (the base classes)
-        RegionAwarePolicy = import_lazy("..region.policy",
-                                        __package__).RegionAwarePolicy
+        from ..region.policy import RegionAwarePolicy
         return RegionAwarePolicy(region, tolerance=tolerance,
                                  ttl_hours=ttl_hours, clock=clock)
     if spec == "region_pinned" or spec.startswith("region_pinned:"):
@@ -545,8 +542,7 @@ def make_policy(spec: str, tolerance: float = 0.01,
                 raise ValueError("region_pinned needs ':REGION' or a "
                                  "scenario RegionConfig to pick the home")
             pin = region.home
-        RegionPinnedPolicy = import_lazy("..region.policy",
-                                         __package__).RegionPinnedPolicy
+        from ..region.policy import RegionPinnedPolicy
         return RegionPinnedPolicy(pin, tolerance=tolerance,
                                   ttl_hours=ttl_hours, clock=clock)
     if spec == "karpenter_like":

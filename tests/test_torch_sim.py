@@ -11,7 +11,10 @@ packages (the reference's ``"auto"`` is its roofline mode whenever jax
 imports) and clear both perf-model caches around each test.
 """
 
+import ast
 import dataclasses
+import importlib
+import os
 import subprocess
 import sys
 
@@ -453,6 +456,37 @@ def test_lazy_package_symbols_resolve_to_the_port(package, ref_package,
     assert got.__module__.startswith(package.__name__ + ".")
     assert got.__name__ == want.__name__
     assert got.__module__.split(".")[-1] == want.__module__.split(".")[-1]
+
+
+def _code(path: str) -> str:
+    """The module's code: its AST without docstrings (comments never
+    reach it)."""
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", ["sim/policy.py", "chaos/__init__.py",
+                                    "region/__init__.py",
+                                    "serve_sim/__init__.py"])
+def test_lazy_import_sites_are_the_reference_code(module):
+    """The modules that cut the import cycles do so with the reference's
+    in-function imports: their code equals the reference's."""
+    import repro
+    import repro_torch
+    assert (_code(os.path.join(repro_torch.__path__[0], module))
+            == _code(os.path.join(repro.__path__[0], module)))
+
+
+def test_lazy_helper_module_is_gone():
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module("repro_torch._lazy")
 
 
 def test_sim_packages_import_without_jax_or_reference():
