@@ -85,8 +85,9 @@ system's real sizes and holds every result to the host:
    device-market cache misses and the kernels' share of each device
    fleet's wall (CUDA events around every launch);
 12. the hardened, regional and serving policies at their benchmarks' sizes
-   (parameters of ``benchmarks/bench_chaos.py``, ``bench_region.py`` and
-   ``bench_serve.py``, copied): ``FleetSim`` of the combined chaos storm
+   (the scenarios of ``repro_torch.benchmarks.bench_chaos`` and
+   ``.bench_region``; ``bench_serve.py``'s parameters, copied):
+   ``FleetSim`` of the combined chaos storm
    under ``hardened`` and ``kubepacs`` (interrupt seeds 3, 7, 11) and the
    clean inertness pair; the regional storm under ``hardened``,
    ``region_pinned:us-east-1`` and ``kubepacs_region`` over shock seeds 11
@@ -252,7 +253,28 @@ system's real sizes and holds every result to the host:
    ``flash_attention`` launches = steps x 12 layers x ``remat_passes``;
    the warm median step, recovery, save and restore seconds, the peak
    memory, the first and final loss and a ``torch.profiler`` breakdown of
-   one more step ("phase19" lines).
+   one more step ("phase19" lines);
+20. the paper's evaluation through the port (``repro_torch.benchmarks``):
+   (a) the ten figure and table drivers' ``main()`` at the reference's
+   full size (``common.catalog()``'s 2,000 offerings, built once; fig6b's
+   full ``generate_catalog(seed=42)``) under ``numpy``, ``torch`` and
+   ``torch:fused`` in one process: records equal with the wall fields
+   dropped and floats compared with ``==``, lines equal with the walls
+   masked (``masked_csv``), no fused fallback solve, ``cover_dp`` launched
+   under ``torch`` by every driver but fig9 (which never solves),
+   ``fused_rows`` under ``torch:fused`` by every driver that hands the
+   process default to ``bracketed_gss`` or a provisioner
+   (``PAPER_FUSED``); each driver's ``us_per_call``, wall and launches a
+   backend, and the card's lines of fig5, fig6, table2 and table3; (b)
+   ``bench_risk``, ``bench_chaos`` and ``bench_region`` at their full
+   sweeps (``main([])``) under ``numpy`` and ``torch:fused``: records
+   (ladder counters and contract checks in them) equal with the walls and
+   platform fields dropped, every contract check true, the kubepacs
+   fleets of bench_chaos through ``fused_rows``, ``cover_dp`` launched by
+   every ``torch:fused`` run; (c) the widest ``cover_dp`` dispatch and
+   the widest ``fused_rows`` launch of the phase held to their plain
+   versions (and ``cover_dp`` to the host) bitwise and timed, with their
+   bounds ("phase20" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -264,8 +286,9 @@ in ``launches_cost``, phase 16's launches in ``launches_scale`` and its
 readings at the new widths in ``scale``, phase 17's serve launches in
 ``launches_families`` and its readings at the families' shapes in
 ``families``, phase 18's training launches in
-``launches_train_families``, phase 19's in ``launches_examples``); the
-last line
+``launches_train_families``, phase 19's in ``launches_examples``,
+phase 20's in ``launches_paper`` and its readings at the widest launches
+in ``paper``); the last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -494,12 +517,13 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-19 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-20 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
     13 in :func:`run_moe`, 14 in :func:`run_train`, 15 in
     :func:`run_cost`, 16 in :func:`run_scale`, 17 in
     :func:`run_families`, 18 in :func:`run_train_families`, 19 in
-    :func:`run_examples`); returns the kernel record."""
+    :func:`run_examples`, 20 in :func:`run_paper`); returns the kernel
+    record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -747,6 +771,7 @@ def run(dev) -> dict:
     families = run_families(dev)
     train_families = run_train_families(dev)
     examples = run_examples(dev)
+    paper = run_paper(dev)
     for k in kernels:
         k["launches_examples"] = examples.get(k["name"], 0)
         k["launches"] += k["launches_examples"]
@@ -768,6 +793,9 @@ def run(dev) -> dict:
             k["launches_scale"] = scale["launches"].get(k["name"], 0)
             k["launches"] += k["launches_scale"]
             k["scale"] = scale[k["name"]]
+            k["launches_paper"] = paper["launches"].get(k["name"], 0)
+            k["launches"] += k["launches_paper"]
+            k["paper"] = paper[k["name"]]
         if k["name"] in ("flash_attention", "mamba_scan"):
             k["launches_families"] = families["launches"][k["name"]]
             k["launches"] += k["launches_families"]
@@ -1909,45 +1937,23 @@ def run_sim(dev) -> dict:
 
 def run_policies(dev) -> dict:
     """Phase 12 on ``dev``: the hardened, regional and serving policies at
-    their benchmarks' sizes (``benchmarks/bench_chaos.py``,
-    ``bench_region.py``, ``bench_serve.py``, parameters copied), each run in
-    turns through ``numpy`` and the device backends; returns each kernel's
+    their benchmarks' sizes (the port's ``bench_chaos`` and ``bench_region``
+    scenarios; ``bench_serve.py``'s parameters, copied), each run in turns
+    through ``numpy`` and the device backends; returns each kernel's
     launches on this path."""
     import torch
 
-    from repro_torch.chaos import SOLVER_KINDS, fault_storm, region_storm
-    from repro_torch.region import RegionConfig
+    from repro_torch.benchmarks.bench_chaos import chaos_scenario
+    from repro_torch.benchmarks.bench_region import HOME, region_scenario
+    from repro_torch.chaos import SOLVER_KINDS
     from repro_torch.serve_sim import (build_serve_scenario, clear_caches,
                                        run_serving)
-    from repro_torch.sim import FleetSim, Scenario
+    from repro_torch.sim import FleetSim
     from repro_torch.sim import engine as engine_mod
 
     t_phase = time.perf_counter()
     drv = SimDriver(torch, "phase12")
-    home = "us-east-1"
     seeds = [3, 7, 11]
-
-    def chaos_scenario(storm, policy):          # bench_chaos.py:62-75
-        return Scenario(
-            name=f"chaos_{storm or 'clean'}", duration_hours=48.0,
-            step_hours=3.0, pods=160,
-            demand_schedule=((12.0, 220), (24.0, 140)),
-            interrupt_model="pressure", policy=policy,
-            catalog_seed=7, max_offerings=150, market_seed=7,
-            interrupt_seed=7, faults=fault_storm(storm) if storm else ())
-
-    def region_scenario(policy, shock_seed=11):  # bench_region.py:66-86
-        return Scenario(
-            name="region_storm", duration_hours=48.0, step_hours=3.0,
-            pods=160, demand_schedule=((12.0, 220), (24.0, 140)),
-            interrupt_model="pressure", policy=policy,
-            catalog_seed=7, max_offerings=200, market_seed=7,
-            interrupt_seed=7,
-            region=RegionConfig(regions=("us-east-1", "us-west-2",
-                                         "eu-west-1"),
-                                rho=0.7, vol=0.25, shock_seed=shock_seed,
-                                home_region=home, egress_per_pod_hour=0.002),
-            faults=region_storm(home))
 
     def ladder(results, key):
         return sum(r.cache_stats.get(key, 0) for r in results)
@@ -2032,8 +2038,9 @@ def run_policies(dev) -> dict:
               "phase12 chaos clean: ladder counters without faults")
 
     # -- region: the regional storm over two correlated market paths -------
-    for policy in ("hardened", f"region_pinned:{home}", "kubepacs_region"):
-        scs = [region_scenario(policy, shock) for shock in (11, 23)]
+    for policy in ("hardened", f"region_pinned:{HOME}", "kubepacs_region"):
+        scs = [region_scenario(policy, shock_seed=shock)
+               for shock in (11, 23)]
         res = in_turns(f"region {policy}", scs, lambda spec: 0,
                        ("torch:fused", "torch"), paths, 2 * len(seeds))
         check(ladder(res, "chaos_solver_rung_1") == 0,
@@ -4142,30 +4149,6 @@ NO_DP = (("run_scenario", ("--workload", "flash", "--policy",
 SERVE_HOLD_BAR = 2e-4
 
 
-@contextlib.contextmanager
-def recorded(module, name):
-    """``module.name`` replaced by a wrapper that keeps, in the list
-    yielded, each instance made (a class) or each call's positional
-    arguments (a function)."""
-    orig = getattr(module, name)
-    made = []
-    if isinstance(orig, type):
-        class Recorded(orig):
-            def __init__(self, *args, **kw):
-                super().__init__(*args, **kw)
-                made.append(self)
-        new = Recorded
-    else:
-        def new(*args, **kw):
-            made.append(args)
-            return orig(*args, **kw)
-    setattr(module, name, new)
-    try:
-        yield made
-    finally:
-        setattr(module, name, orig)
-
-
 def state_tensors(tree) -> list:
     """The tensors of a training state (modules, dicts, sequences), in a
     fixed order."""
@@ -4331,7 +4314,7 @@ def run_examples(dev) -> dict:
     from repro_torch.core import score as sc
     from repro_torch.data.pipeline import make_batch
     from repro_torch.examples import (masked_walls, provision_cluster,
-                                      quickstart, run_scenario,
+                                      quickstart, recorded, run_scenario,
                                       serve_batched, train_elastic_spot)
     from repro_torch.models import init_params, prefill
     from repro_torch.models.transformer import remat_passes
@@ -4622,6 +4605,293 @@ def run_examples(dev) -> dict:
     print(f"phase19 launches: {dict(launches)}; took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return dict(launches)
+
+
+#: phase 20: the paper's evaluation (``repro_torch.benchmarks``): the ten
+#: figure and table drivers of the runner's ``ALL``, each under every spec
+#: of ``PAPER_SPECS`` in one process, and the three benches at their full
+#: sweeps under ``PAPER_BENCH_SPECS``
+PAPER_SPECS = ("numpy", "torch", "torch:fused")
+#: the benches run no ``torch`` leg: it takes 33.8 s on one H100 80GB
+#: HBM3 at 700 W, cut to keep the script inside its time limit; phase 12
+#: runs the chaos and region fleets through ``torch``
+PAPER_BENCH_SPECS = ("numpy", "torch:fused")
+#: the drivers that hand the process default to ``bracketed_gss`` or a
+#: ``KubePACSProvisioner``: under ``torch:fused`` they decide through
+#: ``fused_rows``.  fig7 and fig12 decide inside ``ClusterSim``, whose
+#: inline solves take the process default per dispatch (``cover_dp``)
+PAPER_FUSED = ("fig5_sota", "fig5c_spotkube", "fig6_alpha",
+               "fig6b_cross_provider", "table2_fixed_alpha",
+               "fig8_preferences", "table3_perf_dollar")
+#: the drivers that settle without a cover DP: fig9 probes fulfillment
+#: and never solves
+PAPER_NO_DP = ("fig9_t3_fulfillment",)
+#: the bench whose fleets batch their decisions (``kubepacs``): under
+#: ``torch:fused`` they take the fused record; the others' policies solve
+#: inline
+PAPER_BENCH_FUSED = ("bench_chaos",)
+#: the four lines that carry the paper's claims
+PAPER_CLAIMS = ("fig5_sota", "fig6_alpha", "table2_fixed_alpha",
+                "table3_perf_dollar")
+
+
+def driver_stdout(torch, fn):
+    """``fn()``'s stdout, its wall (to a synchronised card) and its return
+    value."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = fn()
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0, ret
+
+
+def run_paper(dev) -> dict:
+    """Phase 20 on ``dev``: (a) each of the ten drivers' ``main()`` at the
+    reference's full size under ``numpy``, ``torch`` and ``torch:fused``:
+    records equal with the walls dropped, lines equal with the walls
+    masked, no fused fallback solve, ``cover_dp`` launched by every driver
+    that solves under ``torch`` and ``fused_rows`` by every
+    :data:`PAPER_FUSED` driver under ``torch:fused``; (b) ``bench_risk``,
+    ``bench_chaos`` and ``bench_region`` at their full sweeps
+    (``main([])``) under :data:`PAPER_BENCH_SPECS`, records (ladder
+    counters and contract checks in them) equal with the walls and the
+    platform fields dropped; (c) the widest ``cover_dp`` dispatch and the
+    widest ``fused_rows`` launch of (a) held to their plain versions and
+    timed.  Returns each kernel's launches in (a)-(b) and (c)'s
+    readings."""
+    import torch
+
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import run as runner
+    from repro_torch.core import FusedTorchBackend, NumpyBackend, TorchBackend
+    from repro_torch.core import backend as bmod
+    from repro_torch.core import cover_dp as cdp
+    from repro_torch.core import fused_rows as fr
+    from repro_torch.core import score as sc
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    launches = collections.Counter()
+    widest = {}                  # kernel -> (size, what was launched)
+    dispatch, rows_fn = TorchBackend._dispatch, FusedTorchBackend._rows
+
+    def kept_dispatch(self, groups, with_bits):
+        size = sum(len(g[0]) * (int(g[2]) + 1) for g in groups)
+        if with_bits and size > widest.get("cover_dp", (-1,))[0]:
+            widest["cover_dp"] = (size, list(groups))
+        return dispatch(self, groups, with_bits)
+
+    def kept_rows(self, dm, coefs, *args, score_req=None):
+        size = tuple(coefs.shape[::-1])            # (N, R)
+        if size > widest.get("fused_rows", ((-1,),))[0]:
+            widest["fused_rows"] = (size, (self, dm, coefs, *args),
+                                    score_req)
+        return rows_fn(self, dm, coefs, *args, score_req=score_req)
+
+    def drive(spec, fn, label):
+        """``fn`` under ``spec`` (a fresh backend as the process default),
+        the launches counted; returns (stdout, wall, record, launches
+        (cover_dp, fused_rows, score), the backend)."""
+        saved = bmod._DEFAULT
+        backend = bmod.set_backend(spec)
+        cdp.cover_dp.launches = fr.fused_rows.launches = 0
+        sc.score.launches = 0
+        TorchBackend._dispatch = kept_dispatch
+        FusedTorchBackend._rows = kept_rows
+        try:
+            text, wall, rec = driver_stdout(torch, fn)
+        finally:
+            TorchBackend._dispatch, FusedTorchBackend._rows = (dispatch,
+                                                               rows_fn)
+            bmod._DEFAULT = saved
+        got = (cdp.cover_dp.launches, fr.fused_rows.launches,
+               sc.score.launches)
+        check(got[2] == 0, f"phase20 {label} {spec}: {got[2]} standalone "
+              "score launches")
+        if spec == "numpy":
+            check(got == (0, 0, 0), f"phase20 {label} numpy launched {got}")
+        if isinstance(backend, FusedTorchBackend):
+            info = backend.device_cache_info()
+            check(info["fallback_solves"] == 0,
+                  f"phase20 {label} {spec}: fallback solves {info}")
+        launches["cover_dp"] += got[0]
+        launches["fused_rows"] += got[1]
+        return text, wall, rec, got, backend
+
+    def fused_note(backend):
+        if not isinstance(backend, FusedTorchBackend):
+            return ""
+        info = backend.device_cache_info()
+        return (f", fused records {backend.fused_records}, fallback "
+                f"solves {info['fallback_solves']}, verify solves "
+                f"{info['verify_solves']}")
+
+    # -- 20a: the ten figure and table drivers ------------------------------
+    t0 = time.perf_counter()
+    build = common.catalog
+    full = build()                  # the drivers' 2,000-offering catalog
+    check(len(full) == 2000, f"common.catalog(): {len(full)} offerings")
+    claims = {}
+    common.catalog = lambda seed=0, max_offerings=2000: (
+        list(full) if (seed, max_offerings) == (0, 2000)
+        else build(seed, max_offerings))
+    try:
+        for name, mod in runner.ALL[:10]:
+            ref = None
+            for spec in PAPER_SPECS:
+                text, wall, rec, got, backend = drive(spec, mod.main, name)
+                line = text.strip()
+                check(line.startswith(f"{name},") and "\n" not in line,
+                      f"phase20a {name} {spec}: stdout {text!r}")
+                out = (common.without(rec), common.masked_csv(line))
+                if ref is None:
+                    ref = out
+                else:
+                    check(out[0] == ref[0], f"phase20a {name} {spec}: "
+                          "record differs from numpy's")
+                    check(out[1] == ref[1], f"phase20a {name} {spec}: line "
+                          f"{line} differs from numpy's {ref[1]}")
+                if spec == "torch":
+                    check((got[0] > 0) != (name in PAPER_NO_DP),
+                          f"phase20a {name} torch: launches {got}")
+                    claims[name] = line
+                if spec == "torch:fused" and name in PAPER_FUSED:
+                    check(got[1] > 0 and backend.fused_records > 0,
+                          f"phase20a {name} torch:fused: launches {got}, "
+                          f"fused records {backend.fused_records}")
+                us = line.split(",", 2)[1]
+                dp = ("settles without a DP" if got == (0, 0, 0) else
+                      f"cover_dp {got[0]} fused_rows {got[1]}")
+                print(f"phase20a {name} {spec}: us_per_call {us}, wall "
+                      f"{wall:.3f} s; launches {dp}{fused_note(backend)}"
+                      + ("" if spec == "numpy" else
+                         ": record and line equal to numpy's"))
+    finally:
+        common.catalog = build
+    for name in PAPER_CLAIMS:
+        print(f"phase20a claim ({card}, torch) | {claims[name]}")
+    # the runner's record names the backend and the card it solved on
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "phase20-runner.json")
+    text, _, _, got, backend = drive("torch", lambda: runner.main(
+        ["--only", "table3_perf_dollar", "--json", path]), "runner")
+    with open(path) as f:
+        record = json.load(f)
+    os.remove(path)
+    check(common.masked_csv(text) == common.masked_csv(
+        "name,us_per_call,derived\n" + claims["table3_perf_dollar"] + "\n")
+          and record["backend"] == backend.name == "torch"
+          and record["device"] == card
+          and got[0] > 0, f"phase20a runner: {text!r}, backend "
+          f"{record['backend']!r}, device {record['device']!r}, launches "
+          f"{got}")
+    print(f"phase20a runner --only table3_perf_dollar --json: the card's "
+          f"line; record backend {record['backend']!r}, device "
+          f"{record['device']!r}")
+    print(f"phase20a took {time.perf_counter() - t0:.1f} s")
+
+    # -- 20b: the risk, chaos and region benches at their full sweeps ------
+    t0 = time.perf_counter()
+    fields = common.WALL_FIELDS + common.PLATFORM_FIELDS
+    for name, mod in runner.ALL[10:]:
+        ref = None
+        for spec in PAPER_BENCH_SPECS:
+            text, wall, rec, got, backend = drive(
+                spec, lambda: mod.main([]), name)
+            line = text.strip()
+            out = (common.without(rec, fields), common.masked_csv(line))
+            if ref is None:
+                ref = out
+            else:
+                check(out == ref, f"phase20b {name} {spec}: record or line "
+                      f"{line} differs from numpy's {ref[1]}")
+                check(got[0] > 0
+                      and (got[1] > 0) == (name in PAPER_BENCH_FUSED),
+                      f"phase20b {name} {spec}: launches {got}")
+            if "contracts" in rec:
+                check(all(rec["contracts"].values()),
+                      f"phase20b {name} {spec}: contracts {rec['contracts']}")
+            print(f"phase20b {name} {spec}: us_per_call "
+                  f"{line.split(',', 2)[1]}, wall {wall:.3f} s; launches "
+                  f"cover_dp {got[0]} fused_rows {got[1]}"
+                  f"{fused_note(backend)}"
+                  + ("" if spec == "numpy" else
+                     ": record (ladder counters and contracts in it) and "
+                     "line equal to numpy's"))
+            print(f"phase20b {name} {spec} | {line}")
+    print(f"phase20b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 20c: the widest launches of the paper's path, timed ---------------
+    readings = {}
+    _, groups = widest["cover_dp"]
+    batch = cdp.CoverBatch.build(groups, dev)
+    dp_k, bits_k = cdp.cover_dp(batch, True)
+    dp_p, bits_p = cdp.cover_dp_plain(batch, True)
+    torch.cuda.synchronize()
+    err = max_abs_err(dp_k.cpu().numpy(), dp_p.cpu().numpy())
+    check(err == 0.0 and torch.equal(dp_k, dp_p)
+          and torch.equal(bits_k, bits_p),
+          "phase20c cover_dp widest dispatch: kernel != plain version")
+    got = NumpyBackend().cover_bits(groups)
+    for (d, b), (dh, bh) in zip(batch.split(dp_k.cpu().numpy(),
+                                            bits_k.cpu().numpy()), got):
+        check(d.tobytes() == dh.tobytes() and np.array_equal(b, bh),
+              "phase20c cover_dp widest dispatch: kernel != host")
+    k_ms = cuda_ms(torch, lambda: cdp.cover_dp(batch, True), 20)
+    p_ms = cuda_ms(torch, lambda: cdp.cover_dp_plain(batch, True), 3)
+    b_ms, b_by = bound(groups)
+    chain = longest(groups)
+    readings["cover_dp"] = dict(
+        shape=f"G {len(groups)}, sum B {batch.n_bundles}, max T "
+              f"{int(batch.targets.max())}, {widest['cover_dp'][0]} B of "
+              f"bits", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by)
+    print(f"phase20c cover_dp at the paper's widest dispatch ({card}): "
+          f"{readings['cover_dp']['shape']}: bitwise equal to the plain "
+          f"version and the host; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+          f"bound {b_ms:.6f} ms ({b_by}); longest group {chain} bundles: "
+          f"{k_ms * 1e6 / max(chain, 1):.1f} ns a bundle step")
+
+    (N, R), (be, dm, coefs, actives, reqs, coarse, max_req), score_req = (
+        widest["fused_rows"])
+
+    def kernel():
+        return fr.fused_rows(dm, coefs, actives, reqs, coarse, max_req,
+                             be.bits_budget, score_req=score_req)
+
+    def plain(info=None):
+        return fr.fused_rows_plain(dm, coefs, actives, reqs, coarse, max_req,
+                                   info, score_req=score_req)
+
+    ko = kernel()
+    info = []
+    po = plain(info)
+    torch.cuda.synchronize()
+    check(all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+              for a, b in zip(ko, po)),
+          "phase20c fused_rows widest launch: kernel != plain version")
+    err = float((ko[0] - po[0]).abs().max()) if ko[0].numel() else 0.0
+    k_ms = cuda_ms(torch, kernel, 5)
+    p_ms = cuda_ms(torch, plain, 1)
+    b_ms, b_by = rows_bound(dm, coefs, info)
+    status = ko[1].cpu().numpy()
+    readings["fused_rows"] = dict(
+        shape=f"rows {R}, N {N}, B {dm.n_bundles}"
+              + (", scoring" if score_req is not None else ""),
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by)
+    print(f"phase20c fused_rows at the paper's widest launch ({card}): "
+          f"{readings['fused_rows']['shape']}, feasible "
+          f"{int((status == fr.FEASIBLE).sum())}, max kept "
+          f"{max(r['kept'] for r in info)}, max eff_res "
+          f"{max(r['eff_res'] for r in info)}: counts, status"
+          + (" and scores" if score_req is not None else "")
+          + f" bitwise equal to the plain version; kernel {k_ms:.4f} ms "
+          f"plain {p_ms:.4f} ms bound {b_ms:.6f} ms ({b_by})")
+    print(f"phase20 launches: {dict(launches)}; took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": dict(launches), **readings}
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ card's ``torch`` unless set: ``torch:cpu`` or ``numpy`` on a host); the
 two model examples run on the card unless ``--device cpu``.
 """
 
+import contextlib
 import re
 
 
@@ -27,3 +28,27 @@ def masked_walls(text: str, trace: str = None) -> str:
         text = text.replace(trace, "<trace>")
     text = re.sub(r"\d+\.\d\ds\b", "<s>", text)
     return re.sub(r"\(\d+ replicas/s\)", "(<rate>)", text)
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """``module.name`` replaced, while the block runs, by a wrapper that
+    keeps in the list yielded each instance made (a class) or each call's
+    positional arguments (a function)."""
+    orig = getattr(module, name)
+    made = []
+    if isinstance(orig, type):
+        class Recorded(orig):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                made.append(self)
+        new = Recorded
+    else:
+        def new(*args, **kw):
+            made.append(args)
+            return orig(*args, **kw)
+    setattr(module, name, new)
+    try:
+        yield made
+    finally:
+        setattr(module, name, orig)

@@ -36,7 +36,7 @@ import repro_torch.sim.scenario as port_scenario
 from repro.core import backend as ref_backend_mod
 from repro_torch.core import backend as backend_mod
 from repro_torch.examples import (masked_walls, provision_cluster,
-                                  quickstart, run_scenario)
+                                  quickstart, recorded, run_scenario)
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples")
@@ -143,20 +143,14 @@ def test_run_scenario_fleet_through_the_fused_plane(capsys, monkeypatch,
     """``--replicas 256`` with the fused plane as the process default (the
     fleet's batched ticks through ``fused_rows``' plain version): the
     reference's lines, and no fleet falls back to a host solve."""
-    fleets = []
-
-    class Recorded(run_scenario.FleetSim):
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
-            fleets.append(self)
-
-    monkeypatch.setattr(run_scenario, "FleetSim", Recorded)
     argv = ["--smoke", "--replicas", "256"]
     traces = [str(tmp_path / "ref.jsonl"), str(tmp_path / "port.jsonl")]
     want = reference_stdout(capsys, monkeypatch, "run_scenario",
                             [*argv, "--trace", traces[0]])
     backend_mod.set_backend("torch:fused:cpu")
-    got = port_stdout(capsys, run_scenario, [*argv, "--trace", traces[1]])
+    with recorded(run_scenario, "FleetSim") as fleets:
+        got = port_stdout(capsys, run_scenario,
+                          [*argv, "--trace", traces[1]])
     assert masked_walls(got, traces[1]) == masked_walls(want, traces[0])
     (fleet,) = fleets
     stats = fleet.stats()
