@@ -68,14 +68,15 @@ system's real sizes and holds every result to the host:
    tokens equal); and, reported only, the full-depth bfloat16 prefill's
    largest logit difference between the two;
 11. the simulation layer (``repro_torch.sim``) at the full-run sizes of
-   ``benchmarks/bench_fleet.py``: ``FleetSim`` over the heterogeneous-demand
+   the port's ``bench_fleet`` (its ``sizes()`` and ``scenarios()``,
+   imported): ``FleetSim`` over the heterogeneous-demand
    scenario (250 offerings, 128 replicas, traces recorded) through
    ``torch:fused``, ``torch`` and ``numpy``, and over the interrupt storm
    and the pressure crunch (250 offerings, 256 replicas each) through
    ``torch:fused`` and ``numpy``; one ``ClusterSim`` of the storm and one
    of the diurnal serving scenario (analytic perf model) under the default
-   backend (the card) against ``numpy``; each fleet in turns (``numpy``,
-   the device backends, the same reversed, ``numpy``).  Every replica's
+   backend (the card) against ``numpy``; each fleet once a backend
+   (``numpy``, then the device backends).  Every replica's
    JSONL trace,
    decision records and float totals equal NumPy's byte for byte, no
    fused fleet falls back to a host solve, ``fused_rows`` launches in every
@@ -86,16 +87,16 @@ system's real sizes and holds every result to the host:
    fleet's wall (CUDA events around every launch);
 12. the hardened, regional and serving policies at their benchmarks' sizes
    (the scenarios of ``repro_torch.benchmarks.bench_chaos`` and
-   ``.bench_region``; ``bench_serve.py``'s parameters, copied):
+   ``.bench_region``, ``.bench_serve``'s policies and horizon):
    ``FleetSim`` of the combined chaos storm
    under ``hardened`` and ``kubepacs`` (interrupt seeds 3, 7, 11) and the
    clean inertness pair; the regional storm under ``hardened``,
    ``region_pinned:us-east-1`` and ``kubepacs_region`` over shock seeds 11
    and 23; ``run_serving`` of the diurnal workload (24 h, analytic perf
-   model) under bench_serve's five policies.  Each in turns through
-   ``numpy``, ``torch:fused`` (fleets) and ``torch`` (the process default,
-   which every inline solve takes), ``numpy``: traces, decision records,
-   ``chaos_*`` ladder counters and serving reports equal to the first
+   model) under bench_serve's five policies.  Each through ``numpy``,
+   then ``torch:fused`` (fleets) and ``torch`` (the process default,
+   which every inline solve takes): traces, decision records,
+   ``chaos_*`` ladder counters and serving reports equal to the
    ``numpy`` run's, no fallback solve, ``cover_dp`` launched by every
    policy that solves inline, the ``numpy`` rung used only where the storm
    injects solver faults; replicas/s and the kernels' share of each wall;
@@ -157,14 +158,15 @@ system's real sizes and holds every result to the host:
    repro_torch.launch.dryrun --arch internvl2-1b --shape decode_32k
    --multi-pod`` in a subprocess: status ok on 512 fake ranks, its
    ``memory_analysis`` and args + temp a device ("phase15" lines);
-16. the coarsening ladder at ``benchmarks/bench_scale.py``'s size (its
-   market and demands, copied): 1,597 items, 6,606 bundles, ``pods_gcd``
+16. the coarsening ladder at the port's ``bench_scale``'s size (its
+   catalog, pod shape, ``SCALES`` and ``PRESCAN_GRID``, imported): 1,597
+   items, 6,606 bundles, ``pods_gcd``
    8, from 5,000 to 1,000,000 pods.  (a) At each scale every prescan α's
    pool and ``IlpStats`` through ``torch`` and ``torch:fused`` bitwise
    ``numpy``'s, one ``bracketed_gss_many`` decision equal to ``numpy``'s
    with ``torch:fused`` taking a fused record at 5 k and 20 k and
    declining the approx regime above (its batch then launches
-   ``cover_dp``), zero fallback solves, the walls in turns over five
+   ``cover_dp``), zero fallback solves, the walls in turns over three
    rounds and each backend's ``scale_ratio_1m_vs_5k``; ``provision()``
    at 1 M pods through the default backend equal to NumPy's. (b) The
    exact engine (coarsening off) through ``numpy``, ``torch`` and the
@@ -274,7 +276,25 @@ system's real sizes and holds every result to the host:
    every ``torch:fused`` run; (c) the widest ``cover_dp`` dispatch and
    the widest ``fused_rows`` launch of the phase held to their plain
    versions (and ``cover_dp`` to the host) bitwise and timed, with their
-   bounds ("phase20" lines).
+   bounds ("phase20" lines);
+21. the runner's remaining drivers (``DRIVERS``): (a) bench_solver,
+   bench_backend, bench_scale, bench_fleet, bench_serve (ambient perf
+   mode: roofline on the card), elastic_training and roofline_report
+   through ``repro_torch.benchmarks.run.main(["--only", name, "--json",
+   path])`` at full size under the card's ``torch``: every gate of each
+   record true (``driver_gates``: the equality gates, the device legs'
+   selections equal to NumPy's, 0 fallback solves, the verified scales,
+   fleet = ``run_replicas``, determinism and 0 infeasible decisions, the
+   trainer's interrupts), the record naming ``torch`` and the card,
+   ``cover_dp`` launched by every driver that solves, ``fused_rows`` by
+   bench_backend's and bench_scale's fused legs, ``flash_attention`` by
+   elastic_training's forward and remat recompute; (b) bench_solver,
+   bench_fleet and bench_serve (analytic) under ``numpy`` in the same
+   process, records equal to the card's with the walls and platform
+   fields dropped; (c) ``perf_gate --update`` into a temporary directory,
+   then the gate against it: exit 0, every check ok; (d)
+   ``roofline_report`` and ``make_tables`` over phase 15d's record in a
+   temporary ``dryrun_*.jsonl`` (``cells_ok=1``) ("phase21" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -288,7 +308,7 @@ readings at the new widths in ``scale``, phase 17's serve launches in
 ``families``, phase 18's training launches in
 ``launches_train_families``, phase 19's in ``launches_examples``,
 phase 20's in ``launches_paper`` and its readings at the widest launches
-in ``paper``); the last line
+in ``paper``, phase 21's in ``launches_drivers``); the last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -517,13 +537,13 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-20 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-21 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
     13 in :func:`run_moe`, 14 in :func:`run_train`, 15 in
     :func:`run_cost`, 16 in :func:`run_scale`, 17 in
     :func:`run_families`, 18 in :func:`run_train_families`, 19 in
-    :func:`run_examples`, 20 in :func:`run_paper`); returns the kernel
-    record."""
+    :func:`run_examples`, 20 in :func:`run_paper`, 21 in
+    :func:`run_drivers`); returns the kernel record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -662,8 +682,9 @@ def run(dev) -> dict:
             a.pool.as_dict() == b.pool.as_dict() for a, b in zip(dec_t, dec_n)),
             f"fleet tick {n_items}x{base} differs from NumPy")
         check(n_launch > 0, f"fleet tick {n_items}x{base} launched no kernel")
-        w_t = wall_s(lambda: tick(items, market, demands, "torch"), 3)
-        w_n = wall_s(lambda: tick(items, market, demands, NumpyBackend()), 3)
+        # one pair of walls: phase 21 times bench_backend's ticks itself
+        w_t = wall_s(lambda: tick(items, market, demands, "torch"), 1)
+        w_n = wall_s(lambda: tick(items, market, demands, NumpyBackend()), 1)
         print(f"phase4 fleet tick {n_items} items x {base} pods x 32 "
               f"decisions: launches={n_launch} wall torch {w_t * 1e3:.3f} ms "
               f"numpy {w_n * 1e3:.3f} ms: equal to NumPy")
@@ -772,7 +793,10 @@ def run(dev) -> dict:
     train_families = run_train_families(dev)
     examples = run_examples(dev)
     paper = run_paper(dev)
+    drivers = run_drivers(dev, cost["dryrun"])
     for k in kernels:
+        k["launches_drivers"] = drivers.get(k["name"], 0)
+        k["launches"] += k["launches_drivers"]
         k["launches_examples"] = examples.get(k["name"], 0)
         k["launches"] += k["launches_examples"]
         k["launches_sim"] = sim.get(k["name"], 0)
@@ -1805,10 +1829,11 @@ def outcome(results):
             for r in results]
 
 
-def fleet_in_turns(drv, name, scenario, replicas, specs):
+def fleet_in_turns(drv, name, scenario, replicas, specs, turns=True):
     """``FleetSim`` of ``scenario`` over ``replicas`` interrupt seeds, traces
     recorded, through ``numpy`` and each of ``specs`` in turns (numpy,
-    specs, specs reversed, numpy) under ``drv`` (a :class:`SimDriver`):
+    specs, specs reversed, numpy; with ``turns`` false numpy and specs
+    once each) under ``drv`` (a :class:`SimDriver`):
     every run equal to the first numpy run's, no fused fallback solve,
     ``fused_rows`` launched by every ``torch:fused`` run and ``cover_dp``
     by every ``torch`` run; prints a line a run and the replicas/s in
@@ -1819,7 +1844,9 @@ def fleet_in_turns(drv, name, scenario, replicas, specs):
     ref = None
     rates = collections.defaultdict(list)
     runs = []
-    for spec in ("numpy", *specs, *reversed(specs), "numpy"):
+    order = (("numpy", *specs, *reversed(specs), "numpy") if turns
+             else ("numpy", *specs))
+    for spec in order:
         sims = []
 
         def go():
@@ -1878,14 +1905,14 @@ def fleet_in_turns(drv, name, scenario, replicas, specs):
 
 def run_sim(dev) -> dict:
     """Phase 11 on ``dev``: the simulation layer at ``bench_fleet``'s
-    full-run sizes; returns each kernel's launches on this path."""
+    full-run sizes (its scenarios and replica counts, imported); returns
+    each kernel's launches on this path."""
     import torch
 
-    from repro_torch.risk.backtest import (interrupt_storm_scenario,
-                                           pressure_crunch_scenario)
+    from repro_torch.benchmarks import bench_fleet
+    from repro_torch.benchmarks.bench_serve import _pinned_mode
     from repro_torch.serve_sim import clear_caches
-    from repro_torch.sim import (ClusterSim, heterogeneous_demand_scenario,
-                                 serving_scenario)
+    from repro_torch.sim import ClusterSim, serving_scenario
 
     t_phase = time.perf_counter()
     drv = SimDriver(torch, "phase11")
@@ -1910,26 +1937,19 @@ def run_sim(dev) -> dict:
                   f"{k_ms:.3f} ms, share of wall {k_ms / 1e3 / wall:.4f}"
                   + (": equal to numpy" if spec != "numpy" else ""))
 
-    fleet_in_turns(drv, "hetero",
-                   heterogeneous_demand_scenario(max_offerings=250), 128,
-                   ("torch:fused", "torch"))
-    fleet_in_turns(drv, "storm", interrupt_storm_scenario(max_offerings=250),
-                   256, ("torch:fused",))
-    fleet_in_turns(drv, "crunch",
-                   pressure_crunch_scenario(max_offerings=250), 256,
-                   ("torch:fused",))
-    standalone("storm", interrupt_storm_scenario(max_offerings=250))
-    saved_mode = os.environ.get("KUBEPACS_SERVE_PERF")
-    os.environ["KUBEPACS_SERVE_PERF"] = "analytic"
-    clear_caches()
-    try:
+    replicas, _, hetero_replicas, tweak = bench_fleet.sizes()
+    storm, crunch, hetero = bench_fleet.scenarios(tweak)
+    # one run a backend: phase 21 times bench_fleet itself
+    fleet_in_turns(drv, "hetero", hetero, hetero_replicas,
+                   ("torch:fused", "torch"), turns=False)
+    fleet_in_turns(drv, "storm", storm, replicas, ("torch:fused",),
+                   turns=False)
+    fleet_in_turns(drv, "crunch", crunch, replicas, ("torch:fused",),
+                   turns=False)
+    standalone("storm", storm)
+    with _pinned_mode("analytic"):
         standalone("serving diurnal", serving_scenario("diurnal"))
-    finally:
-        if saved_mode is None:
-            del os.environ["KUBEPACS_SERVE_PERF"]
-        else:
-            os.environ["KUBEPACS_SERVE_PERF"] = saved_mode
-        clear_caches()
+    clear_caches()
     print(f"phase11 launches on the sim path: {dict(counts)}; took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return dict(counts)
@@ -1938,11 +1958,12 @@ def run_sim(dev) -> dict:
 def run_policies(dev) -> dict:
     """Phase 12 on ``dev``: the hardened, regional and serving policies at
     their benchmarks' sizes (the port's ``bench_chaos`` and ``bench_region``
-    scenarios; ``bench_serve.py``'s parameters, copied), each run in turns
+    scenarios, ``bench_serve``'s policies and horizon), each run in turns
     through ``numpy`` and the device backends; returns each kernel's
     launches on this path."""
     import torch
 
+    from repro_torch.benchmarks import bench_serve
     from repro_torch.benchmarks.bench_chaos import chaos_scenario
     from repro_torch.benchmarks.bench_region import HOME, region_scenario
     from repro_torch.chaos import SOLVER_KINDS
@@ -1960,14 +1981,15 @@ def run_policies(dev) -> dict:
 
     def in_turns(label, scenarios, kernel, specs, run_fn, n_replicas):
         """``run_fn(scenarios, spec)`` -> (results, fleet stats or None) for
-        each spec in ``("numpy", *specs, "numpy")``; every run equal to the
-        first numpy run's (traces, decision records, totals, ladder
+        each spec in ``("numpy", *specs)``; every run equal to the numpy
+        run's (traces, decision records, totals, ladder
         counters); ``kernel(spec)`` names the launch count (0 cover_dp, 1
         fused_rows) that must be positive on a device run, or None for a
         policy that never solves; returns the first run's results."""
         ref = first = None
         rates = collections.defaultdict(list)
-        for spec in ("numpy", *specs, "numpy"):
+        # no second numpy run: phase 20b and 21 cover these benches
+        for spec in ("numpy", *specs):
             (results, stats), wall, got, k_ms = drv.drive(
                 spec, lambda: run_fn(scenarios, spec), label)
             out = outcome(results)
@@ -2050,8 +2072,6 @@ def run_policies(dev) -> dict:
                   "phase12 region hardened: no failover")
 
     # -- serving: bench_serve's five policies on the diurnal workload ------
-    saved_mode = os.environ.get("KUBEPACS_SERVE_PERF")
-    os.environ["KUBEPACS_SERVE_PERF"] = "analytic"
     base_sim = engine_mod.ClusterSim
     kept = []
 
@@ -2074,12 +2094,12 @@ def run_policies(dev) -> dict:
                         report))
         return list(kept), None
 
-    try:
-        for policy in ("serving_slo", "karpenter_like", "kubepacs",
-                       "fixed_alpha:0.5", "kubepacs_risk"):
+    with bench_serve._pinned_mode("analytic"):
+        for policy in bench_serve.POLICIES:
             reports = []
-            ss = build_serve_scenario("diurnal", policy=policy,
-                                      duration_hours=24.0)
+            ss = build_serve_scenario(
+                "diurnal", policy=policy,
+                duration_hours=bench_serve.DURATION_HOURS)
             # serving_slo must reach the card; karpenter_like is a greedy
             # and fixed_alpha's one decision may settle without a DP
             held = policy == "serving_slo"
@@ -2095,12 +2115,7 @@ def run_policies(dev) -> dict:
                   f"{rep.slo_attainment:.6f}, SLO QPS-hours a dollar "
                   f"{rep.slo_qps_hours_per_dollar:.4f}, cost "
                   f"{rep.total_cost:.4f}")
-    finally:
-        if saved_mode is None:
-            del os.environ["KUBEPACS_SERVE_PERF"]
-        else:
-            os.environ["KUBEPACS_SERVE_PERF"] = saved_mode
-        clear_caches()
+    clear_caches()
     print(f"phase12 launches on the policy paths: {dict(drv.counts)}; took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return dict(drv.counts)
@@ -2851,7 +2866,7 @@ def run_cost(dev) -> dict:
     """Phase 15 on ``dev``: the cost model against the card (15a), the
     sharded step factories on a 1-rank mesh (15b), ServeSim's roofline mode
     (15c) and the dry-run (15d); returns each kernel's launches on the
-    sharded and roofline-serving paths."""
+    sharded and roofline-serving paths and 15d's record (``dryrun``)."""
     import dataclasses
     import resource
     import shutil
@@ -3278,27 +3293,25 @@ def run_cost(dev) -> dict:
           f"({time.perf_counter() - t0:.1f} s with the subprocess)")
     print(f"phase15 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": dict(launches),
-            "shares": shares, "measured_ms": measured}
+            "shares": shares, "measured_ms": measured, "dryrun": rec}
 
 
 
-#: bench_scale's configuration (``benchmarks/bench_scale.py:62-85`` and
-#: ``:167-218``), copied: that module imports the JAX package.  The market
-#: is ``generate_catalog(seed=17, max_offerings=1600)`` preprocessed for
-#: quarter-vCPU / quarter-GiB pods (``pods_gcd`` 8); one decision is a
-#: bracketed GSS over the prescan grid ``i/8``
-SCALE_CATALOG = dict(seed=17, max_offerings=1600)
-SCALE_POD = dict(cpu_per_pod=0.25, mem_per_pod=0.25)
-SCALES = (5_000, 20_000, 50_000, 200_000, 1_000_000)
-PRESCAN_GRID = tuple(i / 8 for i in range(9))
-#: demands at which the fused plane takes the default ladder's batch: above
+#: phase 16 runs at the port's bench_scale's size
+#: (``repro_torch.benchmarks.bench_scale``: its catalog, pod shape,
+#: ``SCALES`` and ``PRESCAN_GRID``): ``generate_catalog(seed=17,
+#: max_offerings=1600)`` preprocessed for quarter-vCPU / quarter-GiB pods
+#: (``pods_gcd`` 8); one decision is a bracketed GSS over the grid ``i/8``.
+#: Demands at which the fused plane takes the default ladder's batch: above
 #: them ``ceil(demand / 8) > max_rows`` puts rows in the approx regime,
 #: which ``FusedTorchBackend.fused_gss_record`` declines
 SCALE_FUSED_MAX = 20_000
 #: the gcd tier pinned (``high_demand_scenario``'s docstring) and where
 SCALE_PINNED = (200_000, 1_000_000)
-#: timing rounds in turns, and the high-demand fleet's interrupt seeds
-SCALE_ROUNDS = 5
+#: timing rounds in turns (bench_scale's own default ``--repeat``; five
+#: until phase 21 ran bench_scale itself), and the high-demand fleet's
+#: interrupt seeds
+SCALE_ROUNDS = 3
 SCALE_SEEDS = 32
 
 
@@ -3340,11 +3353,13 @@ def run_scale(dev) -> dict:
     kernel's launches on this path and 16e's readings."""
     import torch
 
+    from repro_torch.benchmarks.bench_scale import (POD_SHAPE, PRESCAN_GRID,
+                                                    SCALES, build_catalog)
     from repro_torch.core import (DEFAULT_COARSENING, CoarseningConfig,
                                   FusedTorchBackend, KubePACSProvisioner,
                                   NumpyBackend, Request, TorchBackend,
-                                  compile_market, generate_catalog,
-                                  get_backend, preprocess, solve_ilp_many)
+                                  compile_market, get_backend, preprocess,
+                                  solve_ilp_many)
     from repro_torch.core import cover_dp as cdp
     from repro_torch.core import fused_rows as fr
     from repro_torch.core.gss import bracketed_gss_many
@@ -3353,8 +3368,8 @@ def run_scale(dev) -> dict:
     t_phase = time.perf_counter()
     exact_cfg = CoarseningConfig(enabled=False)
     pinned_cfg = CoarseningConfig(max_rows=1 << 20)
-    catalog = generate_catalog(**SCALE_CATALOG)
-    items = preprocess(catalog, Request(pods=5_000, **SCALE_POD))
+    catalog = build_catalog()
+    items = preprocess(catalog, Request(pods=5_000, **POD_SHAPE))
     market = compile_market(items)
     check((market.n, market.n_bundles, market.pods_gcd) == (1597, 6606, 8),
           f"phase16 market: {market.n} items, {market.n_bundles} bundles, "
@@ -3490,7 +3505,7 @@ def run_scale(dev) -> dict:
 
     check(isinstance(get_backend(), TorchBackend)
           and get_backend().device == dev, "default backend is not the card")
-    req = Request(pods=1_000_000, **SCALE_POD)
+    req = Request(pods=1_000_000, **POD_SHAPE)
     prov_t = KubePACSProvisioner(timer=fake_timer,
                                  coarsening=DEFAULT_COARSENING)
     prov_n = KubePACSProvisioner(timer=fake_timer,
@@ -4612,6 +4627,8 @@ def run_examples(dev) -> dict:
 #: of ``PAPER_SPECS`` in one process, and the three benches at their full
 #: sweeps under ``PAPER_BENCH_SPECS``
 PAPER_SPECS = ("numpy", "torch", "torch:fused")
+#: the benches 20b runs at their full sweeps
+PAPER_BENCHES = ("bench_risk", "bench_chaos", "bench_region")
 #: the benches run no ``torch`` leg: it takes 33.8 s on one H100 80GB
 #: HBM3 at 700 W, cut to keep the script inside its time limit; phase 12
 #: runs the chaos and region fleets through ``torch``
@@ -4794,7 +4811,9 @@ def run_paper(dev) -> dict:
     # -- 20b: the risk, chaos and region benches at their full sweeps ------
     t0 = time.perf_counter()
     fields = common.WALL_FIELDS + common.PLATFORM_FIELDS
-    for name, mod in runner.ALL[10:]:
+    drivers = dict(runner.ALL)
+    for name in PAPER_BENCHES:
+        mod = drivers[name]
         ref = None
         for spec in PAPER_BENCH_SPECS:
             text, wall, rec, got, backend = drive(
@@ -4892,6 +4911,257 @@ def run_paper(dev) -> dict:
     print(f"phase20 launches: {dict(launches)}; took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": dict(launches), **readings}
+
+
+#: phase 21: the port's remaining drivers through its runner
+#: (``python -m repro_torch.benchmarks.run --only NAME --json PATH``) at
+#: their full size, under the card's ``torch``
+DRIVERS = ("bench_solver", "bench_backend", "bench_scale", "bench_fleet",
+           "bench_serve", "elastic_training", "roofline_report")
+#: the drivers whose fused legs launch ``fused_rows``, the one that trains
+#: through ``flash_attention``, and the one that solves nothing; every
+#: other driver's decisions launch ``cover_dp``
+DRIVERS_FUSED = ("bench_backend", "bench_scale")
+DRIVERS_FLASH = ("elastic_training",)
+DRIVERS_NO_DP = ("roofline_report",)
+#: 21b: the drivers with a bitwise contract, held against ``numpy`` in one
+#: process (bench_serve in the analytic perf-model mode)
+DRIVERS_BITWISE = ("bench_solver", "bench_fleet", "bench_serve")
+
+
+def driver_gates(name, rec) -> dict:
+    """A phase-21 driver's own gates, read from its record: what each
+    asserts -> whether it holds."""
+    from repro_torch.benchmarks.bench_scale import VERIFY_MAX
+
+    gates = {}
+    if name == "bench_solver":
+        for c in rec["cases"]:
+            for key in ("e_total_engine", "e_total_reference"):
+                gates[f"{c['n_items']}x{c['req_pods']} {key} > 0"] = (
+                    math.isfinite(c[key]) and c[key] > 0)
+    elif name == "bench_backend":
+        for cfg, tick in rec["configs"].items():
+            gates[f"{cfg} equality_checked"] = tick["equality_checked"]
+            for leg in ("batched_torch", "fused_torch"):
+                key = f"{leg}_selections_equal_numpy"
+                gates[f"{cfg} {key}"] = tick[key]
+            gates[f"{cfg} fused_fallback_solves == 0"] = (
+                tick["fused_fallback_solves"] == 0)
+        for row in rec["scaling"]:
+            size = row["offerings"]
+            gates[f"scaling {size} selections_equal_numpy"] = (
+                row["selections_equal_numpy"])
+            gates[f"scaling {size} fused_fallback_solves == 0"] = (
+                row["fused_fallback_solves"] == 0)
+    elif name == "bench_scale":
+        for row in rec["scales"]:
+            gates[f"{row['pods']} fused_selection_equal_numpy"] = (
+                row["fused_selection_equal_numpy"])
+        gates["verified_scales"] = rec["headline"]["verified_scales"] == [
+            r["pods"] for r in rec["scales"] if r["pods"] <= VERIFY_MAX]
+        gates["fused_fallback_solves == 0"] = rec["fused_fallback_solves"] == 0
+    elif name == "bench_fleet":
+        gates["equality_checked (fleet = run_replicas)"] = (
+            rec["equality_checked"])
+    elif name == "bench_serve":
+        gates["determinism_checked"] = rec["determinism_checked"]
+        gates["infeasible_decisions == 0"] = (
+            rec["headline"]["infeasible_decisions"] == 0)
+    elif name == "elastic_training":
+        gates["interrupts_handled >= 1"] = rec["interrupts_handled"] >= 1
+        gates["trace_records > 0"] = rec["trace_records"] > 0
+        gates["loss_drop finite"] = math.isfinite(rec["loss_drop"])
+    elif name == "roofline_report":
+        gates["failed == 0"] = rec["failed"] == 0
+    return gates
+
+
+def run_drivers(dev, dryrun) -> dict:
+    """Phase 21 on ``dev``: (a) each of :data:`DRIVERS` through the port's
+    runner at full size under the card's ``torch``: its gates true, the
+    runner's record naming ``torch`` and the card, ``cover_dp`` launched
+    by every driver that solves, ``fused_rows`` by
+    :data:`DRIVERS_FUSED`, ``flash_attention`` by :data:`DRIVERS_FLASH`;
+    (b) :data:`DRIVERS_BITWISE` under ``numpy`` in the same process,
+    records equal to the card's with the walls and platform fields
+    dropped; (c) ``perf_gate --update`` into a temporary directory, then
+    the gate against it: exit 0, every check ok; (d) ``roofline_report``
+    and ``make_tables`` over ``dryrun`` (phase 15d's record) in a
+    temporary ``dryrun_*.jsonl``.  Returns each kernel's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.benchmarks import (common, make_tables, perf_gate,
+                                        roofline_report)
+    from repro_torch.benchmarks import run as runner
+    from repro_torch.benchmarks.bench_serve import _pinned_mode
+    from repro_torch.core import backend as bmod
+    from repro_torch.core import cover_dp as cdp
+    from repro_torch.core import fused_rows as fr
+    from repro_torch.core import score as sc
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    launches = collections.Counter()
+    wrappers = {"cover_dp": cdp.cover_dp, "fused_rows": fr.fused_rows,
+                "score": sc.score, "flash_attention": flash_attention_cuda,
+                "mamba_scan": selective_scan_cuda}
+    fields = common.WALL_FIELDS + common.PLATFORM_FIELDS
+    drivers = dict(runner.ALL)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase21-", dir=os.path.join(ROOT, "build"))
+
+    def drive(spec, fn, label):
+        """``fn()`` with ``spec`` (a fresh backend) the process default and
+        the launches counted: (stdout, wall, its return, launches)."""
+        saved = bmod._DEFAULT
+        bmod.set_backend(spec)
+        for w in wrappers.values():
+            w.launches = 0
+        try:
+            text, wall, ret = driver_stdout(torch, fn)
+        except SystemExit as exc:
+            check(False, f"phase21 {label} {spec}: exit {exc.code}")
+        finally:
+            bmod._DEFAULT = saved
+        got = {k: w.launches for k, w in wrappers.items()}
+        check(got["score"] == 0, f"phase21 {label} {spec}: standalone score "
+              f"launches {got}")
+        if spec == "numpy":
+            check(not any(got.values()), f"phase21 {label} numpy launched "
+                  f"{got}")
+        launches.update(got)
+        return text, wall, ret, got
+
+    def normal(rec):
+        return json.loads(json.dumps(common.without(rec, fields),
+                                     default=str))
+
+    try:
+        # -- 21a: each driver through the runner, on the card -------------
+        t0 = time.perf_counter()
+        records = {}
+        for name in DRIVERS:
+            path = os.path.join(tmp, f"{name}.json")
+            text, wall, _, got = drive("torch", lambda: runner.main(
+                ["--only", name, "--json", path]), name)
+            with open(path) as f:
+                out = json.load(f)
+            rec = records[name] = out[name]
+            lines = text.strip().split("\n")
+            check(lines[0] == "name,us_per_call,derived"
+                  and lines[1].startswith(f"{name},"),
+                  f"phase21a {name}: stdout {text[-2000:]!r}")
+            check(out["backend"] == "torch" and out["device"] == card,
+                  f"phase21a {name}: record backend {out['backend']!r}, "
+                  f"device {out['device']!r}")
+            legs = {"bench_backend": list(rec.get("configs", {}).values()),
+                    "bench_scale": [rec]}.get(name, [])
+            for leg in legs:
+                check(leg["device"] == card, f"phase21a {name}: its device "
+                      f"legs ran on {leg['device']!r}")
+            gates = driver_gates(name, rec)
+            check(gates and all(gates.values()),
+                  f"phase21a {name}: gates {gates}")
+            check((got["cover_dp"] > 0) != (name in DRIVERS_NO_DP),
+                  f"phase21a {name}: launches {got}")
+            check((got["fused_rows"] > 0) == (name in DRIVERS_FUSED),
+                  f"phase21a {name}: launches {got}")
+            check((got["flash_attention"] > 0) == (name in DRIVERS_FLASH),
+                  f"phase21a {name}: launches {got}")
+            print(f"phase21a {name}: wall {wall:.3f} s; launches "
+                  + (", ".join(f"{k} {v}" for k, v in got.items() if v)
+                     or "none")
+                  + f"; {len(gates)} gates true; record backend torch, "
+                  f"device {card}")
+            for line in lines[1:]:
+                print(f"phase21a {name} | {line}")
+        print(f"phase21a took {time.perf_counter() - t0:.1f} s")
+
+        # -- 21b: the bitwise drivers against numpy, in one process -------
+        t0 = time.perf_counter()
+        for name in DRIVERS_BITWISE:
+            mod = drivers[name]
+            if name == "bench_serve":
+                runs = {}
+                with _pinned_mode("analytic"):
+                    for spec in ("torch", "numpy"):
+                        runs[spec] = drive(spec, lambda: mod.main([]), name)
+                card_rec, card_wall = runs["torch"][2], runs["torch"][1]
+                check(runs["torch"][3]["cover_dp"] > 0,
+                      f"phase21b {name} torch: launches {runs['torch'][3]}")
+                _, wall, host_rec, _ = runs["numpy"]
+            else:
+                card_rec, card_wall = records[name], None
+                _, wall, host_rec, _ = drive("numpy", lambda: mod.main([]),
+                                             name)
+            check(normal(card_rec) == normal(host_rec),
+                  f"phase21b {name}: the card's record differs from "
+                  "numpy's")
+            print(f"phase21b {name}"
+                  + (" (analytic)" if name == "bench_serve" else "")
+                  + ": record without walls equal to numpy's"
+                  + (f"; wall torch {card_wall:.3f} s" if card_wall else "")
+                  + f"; wall numpy {wall:.3f} s")
+        print(f"phase21b took {time.perf_counter() - t0:.1f} s")
+
+        # -- 21c: the perf gate, --update into a temporary directory ------
+        t0 = time.perf_counter()
+        saved_paths = perf_gate.REFERENCE_PATH, perf_gate.TRAJECTORY_PATH
+        perf_gate.REFERENCE_PATH = os.path.join(tmp, "PERF_REFERENCE.json")
+        perf_gate.TRAJECTORY_PATH = os.path.join(tmp, "trajectory.jsonl")
+        try:
+            for argv in (["--update"], []):
+                text, wall, rc, got = drive(
+                    "torch", lambda: perf_gate.main(argv), "perf_gate")
+                label = " ".join(["perf_gate", *argv])
+                check(rc == 0, f"phase21c {label}: exit {rc}: {text}")
+                check(got["cover_dp"] > 0 and got["fused_rows"] > 0,
+                      f"phase21c {label}: launches {got}")
+                print(f"phase21c {label}: exit 0, wall {wall:.3f} s")
+            lines = text.strip().split("\n")
+            checks = [l for l in lines if l.startswith("perf_gate: check ")]
+            check(checks and all(l.endswith(": ok") for l in checks)
+                  and lines[-1] == "perf_gate: pass",
+                  f"phase21c gate: {text}")
+            with open(perf_gate.TRAJECTORY_PATH) as f:
+                check(len(f.readlines()) == 2, "phase21c: trajectory lines")
+        finally:
+            perf_gate.REFERENCE_PATH, perf_gate.TRAJECTORY_PATH = saved_paths
+        for line in lines:
+            print(f"phase21c | {line}")
+        print(f"phase21c took {time.perf_counter() - t0:.1f} s")
+
+        # -- 21d: the roofline report and the tables of phase 15d's cell ---
+        path = os.path.join(tmp, "dryrun_phase15d.jsonl")
+        with open(path, "w") as f:
+            f.write(json.dumps(dryrun) + "\n")
+        saved_repo = roofline_report.REPO
+        roofline_report.REPO = tmp
+        try:
+            text, _, rep = driver_stdout(torch, roofline_report.main)
+        finally:
+            roofline_report.REPO = saved_repo
+        check(text.startswith("roofline_report,0,cells_ok=1;skipped=0;"
+                              "failed=0\n#  ") and rep["ok"] == 1,
+              f"phase21d roofline_report: {text!r}")
+        tables, _, _ = driver_stdout(torch, lambda: make_tables.main([path]))
+        check("| internvl2-1b | decode_32k | 2x16x16 | ok |" in tables
+              and tables.count("| internvl2-1b |") == 2,
+              f"phase21d make_tables: {tables!r}")
+        for line in (text + tables).strip().split("\n"):
+            if line.strip():
+                print(f"phase21d | {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase21 launches: {dict(+launches)}; took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 Usage:
   python -m repro_torch.benchmarks.run                    # full sweep
   python -m repro_torch.benchmarks.run --only fig7_tolerance
-  python -m repro_torch.benchmarks.run --only bench_risk --json out.json
+  python -m repro_torch.benchmarks.run --only bench_solver --json out.json
 
 Every solve runs on the process-default backend
 (``KUBEPACS_SOLVER_BACKEND``, the card's ``torch`` unless set; on a host
@@ -11,18 +11,23 @@ without a card name ``torch:cpu``, ``torch:fused:cpu`` or ``numpy``).
 ``--json`` writes every driver's returned record to PATH, beside the
 backend's spec (``backend``) and the card it ran on (``device``: the
 ``nvidia-smi --query-gpu=name,power.limit`` line, or ``"cpu"``).
+bench_backend's and bench_scale's device legs and elastic_training's
+model follow the process default's device (the CPU under ``torch:cpu``
+/ ``torch:fused:cpu``, the card otherwise).
 """
 import argparse
 import json
-import subprocess
 import sys
 import traceback
 
 from ..core import get_backend
-from . import (bench_chaos, bench_region, bench_risk, fig5_sota,
-               fig5c_spotkube, fig6_alpha, fig6b_cross_provider,
-               fig7_tolerance, fig8_preferences, fig9_t3_fulfillment,
-               fig12_interrupts, table2_fixed_alpha, table3_perf_dollar)
+from . import (bench_backend, bench_chaos, bench_fleet, bench_region,
+               bench_risk, bench_scale, bench_serve, bench_solver,
+               elastic_training, fig5_sota, fig5c_spotkube, fig6_alpha,
+               fig6b_cross_provider, fig7_tolerance, fig8_preferences,
+               fig9_t3_fulfillment, fig12_interrupts, roofline_report,
+               table2_fixed_alpha, table3_perf_dollar)
+from .common import device_line
 
 ALL = [
     ("fig5_sota", fig5_sota),
@@ -35,22 +40,17 @@ ALL = [
     ("fig9_t3_fulfillment", fig9_t3_fulfillment),
     ("fig12_interrupts", fig12_interrupts),
     ("table3_perf_dollar", table3_perf_dollar),
+    ("bench_solver", bench_solver),
+    ("bench_backend", bench_backend),
+    ("bench_scale", bench_scale),
     ("bench_risk", bench_risk),
+    ("bench_fleet", bench_fleet),
+    ("bench_serve", bench_serve),
     ("bench_chaos", bench_chaos),
     ("bench_region", bench_region),
+    ("elastic_training", elastic_training),
+    ("roofline_report", roofline_report),
 ]
-
-
-def device_line(backend) -> str:
-    """Where ``backend`` solves: the card's ``nvidia-smi`` name and power
-    limit for a device backend, else ``"cpu"``."""
-    device = getattr(backend, "device", None)
-    if device is None or device.type == "cpu":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", f"--id={device.index or 0}"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def main(argv=None) -> None:

@@ -217,6 +217,6 @@ def test_port_imports_neither_jax_nor_reference():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "repro"):
+                if top in ("jax", "jaxlib", "repro", "benchmarks"):
                     bad.append(f"{os.path.relpath(path, REPO)}: {name}")
     assert bad == []

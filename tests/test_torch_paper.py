@@ -164,7 +164,9 @@ def test_benchmarks_import_neither_jax_nor_the_reference():
     names = [m.name for m in pkgutil.iter_modules(port_benchmarks.__path__)]
     assert sorted(names) == sorted(
         ["common", "run", *DRIVERS, "bench_risk", "bench_chaos",
-         "bench_region"])
+         "bench_region", "bench_solver", "bench_backend", "bench_scale",
+         "bench_fleet", "bench_serve", "perf_gate", "elastic_training",
+         "roofline_report", "make_tables"])
     code = ("import sys\n"
             "class Block:\n"
             "    def find_spec(self, name, path=None, target=None):\n"
