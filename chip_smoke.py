@@ -294,7 +294,33 @@ system's real sizes and holds every result to the host:
    fields dropped; (c) ``perf_gate --update`` into a temporary directory,
    then the gate against it: exit 0, every check ok; (d)
    ``roofline_report`` and ``make_tables`` over phase 15d's record in a
-   temporary ``dryrun_*.jsonl`` (``cells_ok=1``) ("phase21" lines).
+   temporary ``dryrun_*.jsonl`` (``cells_ok=1``) ("phase21" lines);
+22. the reference's long input shapes (``configs.SHAPES``) through the
+   port's entry points at full width, each batch or depth cut taken from
+   the count on ``meta`` so that it leaves 8 GB of the card free: (a)
+   prefill_32k, ``launch.serve.serve`` of internlm2-1.8b (all 24 layers)
+   with a 32,760-token prompt and 8 new tokens at the largest batch of 4
+   or 2 that fits, ``flash_attention`` on layer 0's q, k, v held to
+   ``flash_fwd_chunked`` band by band (each band of 1,024 query rows to
+   3e-2 of its own largest |o|) and timed against SDPA in turns, and a
+   float32
+   ``layout[:2]`` cut at B 1 x S 32,768 through the kernel against the
+   chunked version (logits within 2e-4, 8 greedy tokens equal); (b)
+   decode_32k, a 1,024-token prefill into 32,768-long caches and 8 decode
+   steps at B 16; (c) long_500k of falcon-mamba-7b (B 1 x S 524,288, 8
+   layers): the blocks run one by one (:func:`prefill_by_blocks`), layer
+   0's ``mamba_scan`` launch held to ``selective_scan_chunked`` segment by
+   segment (each 32,768 positions of y to 1e-2 of its own largest |y| in
+   bf16, to 1e-4 on 1,024 channels in float32) and timed, then 8 decode
+   steps from the
+   states; (d) long_500k of jamba-1.5-large's ``layout[:5]`` (bf16
+   parameters): a 1,024-token prefill into a 524,288-long cache and 8
+   decode steps; (e) qwen2.5-32b at all 64 layers with bf16 parameters
+   served as phase 17 serves, and its float32 ``layout[:2]`` held.  Every
+   logit finite, launches = layers x prefills (decode none), and the
+   counted peak of 22a's prefill, 22b's decode step, 22c's block forward
+   and 22e's prefill within 2% + 64 MiB of the allocator's ("phase22"
+   lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -308,7 +334,9 @@ readings at the new widths in ``scale``, phase 17's serve launches in
 ``families``, phase 18's training launches in
 ``launches_train_families``, phase 19's in ``launches_examples``,
 phase 20's in ``launches_paper`` and its readings at the widest launches
-in ``paper``, phase 21's in ``launches_drivers``); the last line
+in ``paper``, phase 21's in ``launches_drivers``, phase 22's in
+``launches_long`` and its readings at the long shapes in ``long``); the
+last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -537,13 +565,14 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-21 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-22 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
     13 in :func:`run_moe`, 14 in :func:`run_train`, 15 in
     :func:`run_cost`, 16 in :func:`run_scale`, 17 in
     :func:`run_families`, 18 in :func:`run_train_families`, 19 in
     :func:`run_examples`, 20 in :func:`run_paper`, 21 in
-    :func:`run_drivers`); returns the kernel record."""
+    :func:`run_drivers`, 22 in :func:`run_long`); returns the kernel
+    record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -794,6 +823,7 @@ def run(dev) -> dict:
     examples = run_examples(dev)
     paper = run_paper(dev)
     drivers = run_drivers(dev, cost["dryrun"])
+    long = run_long(dev)
     for k in kernels:
         k["launches_drivers"] = drivers.get(k["name"], 0)
         k["launches"] += k["launches_drivers"]
@@ -824,6 +854,9 @@ def run(dev) -> dict:
             k["launches_families"] = families["launches"][k["name"]]
             k["launches"] += k["launches_families"]
             k["families"] = families[k["name"]]
+            k["launches_long"] = long["launches"][k["name"]]
+            k["launches"] += k["launches_long"]
+            k["long"] = long[k["name"]]
         if k["name"] == "flash_attention":
             k["launches_moe"] = moe["launches"]
             k["launches"] += moe["launches"]
@@ -1359,27 +1392,46 @@ def greedy(cfg, params, prompt, steps):
     return outs, torch.cat(toks, dim=1)
 
 
+#: the plain attention holds every score in one block while the (B, H, S,
+#: S) float32 scores take at most this many bytes, else blocks of
+#: :data:`LONG_ATTN_CHUNK` query and key positions
+ATTN_ONE_BLOCK, LONG_ATTN_CHUNK = 1 << 32, 1024
+
+
 def attn_in_turns(torch, q, k, v):
     """``(kernel ms, SDPA ms, plain ms, turns)`` of causal attention over
     q ``(B,S,H,hd)`` and k, v ``(B,S,KV,hd)``: the kernel and
-    ``scaled_dot_product_attention`` (``is_causal``, ``enable_gqa``) in
-    turns (kernel, SDPA, SDPA, kernel; the medians of each), then the
-    plain version (``flash_fwd_chunked``, one chunk of the sequence)."""
+    ``scaled_dot_product_attention`` (``is_causal``, ``enable_gqa``; never
+    its math backend, which would hold every score) in turns (kernel, SDPA,
+    SDPA, kernel; the medians of each), then the plain version
+    (``flash_fwd_chunked``).  While the scores fit :data:`ATTN_ONE_BLOCK`
+    the plain version runs one block, five times, and each turn 20 calls;
+    above it blocks of :data:`LONG_ATTN_CHUNK`, once, and 3 calls a
+    turn."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-    s = q.shape[1]
+    b, s, h, _ = q.shape
+    chunk, reps, plain_reps = ((s, 20, 5) if b * h * s * s * 4
+                               <= ATTN_ONE_BLOCK else (LONG_ATTN_CHUNK, 3, 1))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    timed = {"kernel": lambda: flash_attention_cuda(q, k, v),
-             "sdpa": lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True)}
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+    timed = {"kernel": lambda: flash_attention_cuda(q, k, v), "sdpa": sdpa}
     turns = {"kernel": [], "sdpa": []}
     for who in ("kernel", "sdpa", "sdpa", "kernel"):
-        turns[who].append(cuda_ms(torch, timed[who], 20))
+        turns[who].append(cuda_ms(torch, timed[who], reps))
     p_ms = cuda_ms(torch, lambda: ref.flash_fwd_chunked(
-        q, k, v, q_chunk=s, kv_chunk=s), 5)
+        q, k, v, q_chunk=chunk, kv_chunk=chunk), plain_reps)
     return median(turns["kernel"]), median(turns["sdpa"]), p_ms, turns
 
 
@@ -3775,6 +3827,67 @@ def cut_label(cut) -> str:
     return "(" + ", ".join(f"layout[{i}]" for i in layers) + ")"
 
 
+def hold_family(dev, gen, rng, tag, arch, full, hold, n_hold, seed,
+                shape=FAMILY_HOLD):
+    """A float32 cut ``hold`` of ``full`` (:func:`cut_layers`) with
+    ``n_hold`` parameters drawn from ``seed``: prefill and greedy decode
+    (``shape``: batch, prompt, steps, bar) through the kernels, then
+    through the plain versions; raises unless the logits agree within the
+    bar, the tokens are equal, every logit is finite and each run launched
+    exactly its layers' kernels (the plain run nothing); prints a "``tag``
+    hold" line with both runs' walls."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    from repro_torch.launch.serve import _prompts, all_finite
+    from repro_torch.models import count_params, init_params
+
+    def counts():
+        return flash_attention_cuda.launches, selective_scan_cuda.launches
+
+    def run(cfg):
+        t0 = time.perf_counter()
+        outs, toks = greedy(cfg, params, prompt, steps)
+        torch.cuda.synchronize(dev)
+        return outs, toks, time.perf_counter() - t0
+
+    hb, hs, steps, bar = shape
+    hcfg = cut_layers(full, hold, dtype="float32")
+    check(count_params(hcfg) == n_hold,
+          f"{tag} {arch} hold: {count_params(hcfg)} parameters")
+    params = init_params(hcfg, gen.manual_seed(seed), dev)
+    prompt = _prompts(hcfg, rng, hb, hs, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention_cuda.launches = selective_scan_cuda.launches = 0
+    outs_k, toks_k, k_s = run(hcfg)
+    h_attn = sum(spec.mixer == "attn" for spec in hcfg.layout)
+    want = (h_attn, hcfg.n_layers - h_attn)
+    check(counts() == want, f"{tag} {arch} hold: launches {counts()}")
+    outs_p, toks_p, p_s = run(dataclasses.replace(
+        hcfg, attention_impl="chunked"))
+    check(counts() == want,
+          f"{tag} {arch} hold: the plain run launched a kernel")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(bool(all_finite(a)) for a in outs_k),
+          f"{tag} {arch} hold: a logit is not finite")
+    diff = max(max_diff(a, b) for a, b in zip(outs_k, outs_p))
+    check(diff <= bar, f"{tag} {arch} hold: logits differ by {diff}")
+    check(torch.equal(toks_k, toks_p), f"{tag} {arch} hold: tokens "
+          f"differ {toks_k.tolist()} vs {toks_p.tolist()}")
+    print(f"{tag} hold {arch}: {cut_label(hold)} at full "
+          f"width ({n_hold} float32 params), prefill (B {hb}, S "
+          f"{prompt_len(hcfg, prompt)}) + {steps} greedy decode steps, "
+          f"kernels ({k_s:.2f} s) vs plain versions ({p_s:.2f} s): max "
+          f"logit diff {diff:.3e} (bar {bar}), tokens equal "
+          f"{tuple(toks_k.shape)}; launches (flash, scan) {counts()}; peak "
+          f"device memory {peak} B")
+    del params, prompt, outs_k, outs_p
+    release(torch)
+
+
 def run_families(dev) -> dict:
     """Phase 17 on ``dev``: stablelm-3b, qwen2.5-14b, internvl2-1b,
     musicgen-large, jamba-1.5-large and kimi-k2 served at full width
@@ -3957,37 +4070,8 @@ def run_families(dev) -> dict:
         release(torch)
 
         # -- the float32 hold ---------------------------------------------
-        hb, hs, steps, bar = FAMILY_HOLD
-        hcfg = cut_layers(full, hold, dtype="float32")
-        check(count_params(hcfg) == n_hold,
-              f"phase17 {arch} hold: {count_params(hcfg)} parameters")
-        params = init_params(hcfg, gen.manual_seed(270 + seed), dev)
-        prompt = _prompts(hcfg, rng, hb, hs, dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset()
-        outs_k, toks_k = greedy(hcfg, params, prompt, steps)
-        h_attn, h_ssm = mixers(hcfg)
-        check(counts() == (h_attn, h_ssm),
-              f"phase17 {arch} hold: launches {counts()}")
-        outs_p, toks_p = greedy(dataclasses.replace(
-            hcfg, attention_impl="chunked"), params, prompt, steps)
-        check(counts() == (h_attn, h_ssm),
-              f"phase17 {arch} hold: the plain run launched a kernel")
-        peak = torch.cuda.max_memory_allocated(dev)
-        check(all(bool(torch.isfinite(a).all()) for a in outs_k),
-              f"phase17 {arch} hold: a logit is not finite")
-        diff = max(err(a, b) for a, b in zip(outs_k, outs_p))
-        check(diff <= bar, f"phase17 {arch} hold: logits differ by {diff}")
-        check(torch.equal(toks_k, toks_p), f"phase17 {arch} hold: tokens "
-              f"differ {toks_k.tolist()} vs {toks_p.tolist()}")
-        print(f"phase17 hold {arch}: {cut_label(hold)} at full "
-              f"width ({n_hold} float32 params), prefill (B {hb}, S "
-              f"{prompt_len(hcfg, prompt)}) + {steps} greedy decode steps, "
-              f"kernels vs plain versions: max logit diff {diff:.3e} (bar "
-              f"{bar}), tokens equal {tuple(toks_k.shape)}; launches "
-              f"(flash, scan) {counts()}; peak device memory {peak} B")
-        del params, prompt, outs_k, outs_p
-        release(torch)
+        hold_family(dev, gen, rng, "phase17", arch, full, hold, n_hold,
+                    270 + seed)
 
     # -- the kernels at the new prefill shapes ---------------------------
     for arch, b, s, h, kv, hd, n_launch in served_shapes:
@@ -4181,37 +4265,60 @@ def state_tensors(tree) -> list:
 
 
 @contextlib.contextmanager
-def kernel_calls():
-    """Every ``flash_attention_cuda`` and ``selective_scan_cuda`` call the
-    models make (through ``kernels.ops``) while the block runs, kept in the
-    list yielded as ``(name, args, kwargs, outputs)``, inputs copied before
-    the call and outputs after it.  The calls launch and count as before."""
+def kernel_calls(on_call=None):
+    """``kernels.ops``' handles on ``flash_attention_cuda`` and
+    ``selective_scan_cuda`` wrapped while the block runs: each call the
+    models make launches and counts as before, then hands ``(name, args,
+    kwargs, outputs)`` to ``on_call``, whose own launches (comparisons,
+    timings) are taken off both kernels' counts again.  Without
+    ``on_call`` every call is kept in the list yielded, its inputs copied
+    dense (as the relaunch reads them) and its outputs cloned."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
 
     calls = []
 
-    def copied(x):     # dense, as the relaunch reads it
+    def copied(x):
         return (x.detach().clone(memory_format=torch.contiguous_format)
                 if isinstance(x, torch.Tensor) else x)
 
-    def keep(name, fn):
+    def keep(name, args, kw, out):
+        calls.append((name, [copied(a) for a in args],
+                      {k: copied(v) for k, v in kw.items()},
+                      tuple(o.clone() for o in out)))
+
+    def wrapped(name, fn):
         def call(*args, **kw):
-            ins = [copied(a) for a in args]
-            kws = {k: copied(v) for k, v in kw.items()}
             out = fn(*args, **kw)
-            calls.append((name, ins, kws, tuple(o.clone() for o in out)))
+            n = flash_attention_cuda.launches, selective_scan_cuda.launches
+            (on_call or keep)(name, args, kw, out)
+            flash_attention_cuda.launches, selective_scan_cuda.launches = n
             return out
         return call
 
     saved = ops.flash_attention_cuda, ops.selective_scan_cuda
-    ops.flash_attention_cuda = keep("flash_attention", saved[0])
-    ops.selective_scan_cuda = keep("mamba_scan", saved[1])
+    ops.flash_attention_cuda = wrapped("flash_attention", saved[0])
+    ops.selective_scan_cuda = wrapped("mamba_scan", saved[1])
     try:
         yield calls
     finally:
         ops.flash_attention_cuda, ops.selective_scan_cuda = saved
+
+
+def first_call(name, fn):
+    """An ``on_call`` for :func:`kernel_calls` that hands the first call of
+    the ``name`` kernel to ``fn(args, kwargs, outputs)`` and lets every
+    other call pass."""
+    done = []
+
+    def on_call(n, args, kw, out):
+        if n == name and not done:
+            done.append(n)
+            fn(args, kw, out)
+    return on_call
 
 
 def hold_kernel_calls(torch, calls, tag) -> dict:
@@ -5162,6 +5269,643 @@ def run_drivers(dev, dryrun) -> dict:
     print(f"phase21 launches: {dict(+launches)}; took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return dict(launches)
+
+
+#: phase 22: the reference's long input shapes (``configs.SHAPES``) at full
+#: width, only batch and depth cut, each cut taken from the count on
+#: ``meta`` (``roofline.analyze_step``) so that it leaves at least
+#: :data:`LONG_FREE` bytes of the card free.  22a prefill_32k: internlm2-1.8b
+#: served a 32,760-token prompt and 8 new tokens (a 32,768-long cache) at
+#: the largest batch of :data:`LONG_BATCHES` the count fits (the
+#: reference's 32 would need 194 GB of bf16 logits alone)
+LONG_PROMPT, LONG_NEW, LONG_BATCHES = 32_760, 8, (4, 2)
+#: 22a's float32 hold: internlm2's ``layout[:2]`` (its parameters) at B 1
+#: x S 32,768
+LONG_F32_SEQ, INTERNLM2_HOLD = 32_768, 504_899_584
+#: 22b decode_32k: (batch, prompt, cache length); the reference's B 128
+#: would need 412 GB of cache
+LONG_DECODE = (16, 1024, 32_768)
+#: 22c long_500k of falcon-mamba-7b: positions, and the most layers run (the
+#: count fits more; ~0.5 s a layer)
+LONG_SSM_SEQ, LONG_SSM_LAYERS = 524_288, 8
+#: 22c's plain scan runs this many positions at a time, its state carried
+#: (a multiple of ``mamba_chunk``: the same chunks as one call); the float32
+#: hold takes this many channels
+LONG_SCAN_SEGMENT, LONG_SCAN_CHANNELS = 32_768, 1024
+#: 22d long_500k of jamba-1.5-large's ``layout[:5]``: (prompt, cache length)
+LONG_HYBRID = (1024, 524_288)
+#: 22e: qwen2.5-32b's parameters (bf16), and of its float32 hold
+#: ``layout[:2]``
+QWEN32_PARAMS, QWEN32_HOLD = 32_763_876_352, 2_532_350_976
+#: bytes of the card a cut leaves free, by the count
+LONG_FREE = 8e9
+#: 22c's bf16 scan bar: each segment's ``max |y - y_p|`` within this share
+#: of its own ``max |y_p|``, and ``h_final`` of ``max |h_p|`` (y is rounded
+#: to bf16 on both sides, one bf16 ulp being at most 2^-7 = 7.8e-3 of the
+#: value)
+LONG_SCAN_BF16_TOL = 1e-2
+
+
+def prefill_by_blocks(params, cfg, batch, sync=None):
+    """The prefill of ``batch`` a block at a time, as
+    ``transformer.forward`` runs it (``layer(x, cfg, cache=None, pos=0,
+    make_cache=True)`` for each layer), with ``final_norm`` and the
+    unembedding taken of the last position only: ``(logits (B, 1, V), the
+    layers' caches as prefill makes them before padding, each layer's wall
+    in seconds)``.  ``sync`` is called after each layer, before its wall is
+    read.  At long_500k a full prefill's logits alone (524,288 x 65,024 in
+    bf16) are 68.2 GB."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    walls = []
+    with torch.no_grad():
+        x = transformer._embed_inputs(params, cfg, batch)
+        states = []
+        for layer in params.layers:
+            t0 = time.perf_counter()
+            x, state, _ = layer(x, cfg, cache=None, pos=0, make_cache=True)
+            states.append(state)
+            if sync is not None:
+                sync()
+            walls.append(time.perf_counter() - t0)
+        h = params.final_norm(x[:, -1:])
+        w = (params.embed.tok.to(h.dtype).T if cfg.tie_embeddings
+             else params.unembed.w.to(h.dtype))
+        return h @ w, states, walls
+
+
+def max_diff(a, b=None, step=1 << 14) -> float:
+    """``max |a - b|`` (``max |a|`` without ``b``) in float32, over slices of
+    dim 1: a float32 copy of a long shape's whole tensor would not fit."""
+    out = 0.0
+    for i in range(0, a.shape[1], step):
+        t = a[:, i:i + step].float()
+        if b is not None:
+            t = t - b[:, i:i + step].float()
+        if t.numel():
+            out = max(out, float(t.abs().max()))
+    return out
+
+
+def band_errors(a, b, band, step=1 << 14) -> list:
+    """``(max |a - b|, max |b|, mean |b|)`` in float32 of each band of
+    ``band`` positions along dim 1, in order, read ``step`` positions at a
+    time as :func:`max_diff` reads them: a long sequence's late rows can be
+    far smaller than its early ones, so each band is held to its own
+    magnitude."""
+    out = []
+    for i in range(0, a.shape[1], band):
+        e = m = total = 0.0
+        for j in range(i, min(i + band, a.shape[1]), step):
+            c = slice(j, min(j + step, i + band))
+            r = b[:, c].float()
+            e = max(e, float((a[:, c].float() - r).abs().max()))
+            m = max(m, float(r.abs().max()))
+            total += float(r.abs().sum())
+        out.append((e, m, total / b[:, i:i + band].numel()))
+    return out
+
+
+def worst_share(bands) -> float:
+    """The largest ``max |a - b| / max |b|`` of :func:`band_errors`' bands."""
+    return max(e / max(m, 1e-30) for e, m, _ in bands)
+
+
+def scan_plain_in_segments(args, y, h, chunk, segment):
+    """The kernel's ``y`` and ``h_final`` against
+    ``ref.selective_scan_chunked`` over the same inputs, run ``segment``
+    positions at a time with its state carried from one to the next: the
+    same chunks as one call, so the same arithmetic, without one call's
+    float32 ``y`` of the whole sequence.  Returns ``(each segment's
+    (max |y - y_p|, max |y_p|, mean |y_p|), max |h - h_p|, max |h_p|, the
+    plain calls' own ms)``: on the card CUDA events around each plain call
+    alone, summed (None off the card)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    x, dt, A, Bm, Cm, D = args
+    hp = None
+    segs, ms = [], 0.0 if x.is_cuda else None
+    for a in range(0, x.shape[1], segment):
+        c = slice(a, a + segment)
+        if x.is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        yp, hp = ref.selective_scan_chunked(x[:, c], dt[:, c], A, Bm[:, c],
+                                            Cm[:, c], D, h0=hp, chunk=chunk)
+        if x.is_cuda:
+            end.record()
+            end.synchronize()
+            ms += start.elapsed_time(end)
+        segs += band_errors(y[:, c], yp, segment)
+        del yp
+    return segs, float((h - hp).abs().max()), float(hp.abs().max()), ms
+
+
+def run_long(dev) -> dict:
+    """Phase 22 on ``dev``: the reference's long input shapes through the
+    port's entry points at full width (22a prefill_32k and 22b decode_32k
+    of internlm2-1.8b, 22c long_500k of falcon-mamba-7b, 22d long_500k of
+    jamba-1.5-large's ``layout[:5]``) and qwen2.5-32b served at full depth
+    (22e); returns the kernels' launches on those runs and their readings
+    at the new shapes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import roofline
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    from repro_torch.launch.serve import _prompts, all_finite, serve
+    from repro_torch.models import count_params, init_params, transformer
+    from repro_torch.roofline import attn_bound, attn_flops, scan_bound
+    from repro_torch.serving import decode_fn, prefill_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    card = card_line()
+    rng = np.random.default_rng(22)
+    gen = torch.Generator(device=dev)
+    meta = torch.device("meta")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    budget = total - LONG_FREE
+    launches = {"flash_attention": 0, "mamba_scan": 0}
+    readings = {}
+
+    def reset():
+        flash_attention_cuda.launches = selective_scan_cuda.launches = 0
+
+    def counts():
+        return flash_attention_cuda.launches, selective_scan_cuda.launches
+
+    def ran(tag, want):
+        """The launches since :func:`reset` must be ``want``; they are the
+        main path's, and the counts start again from 0."""
+        check(counts() == want, f"{tag}: launches (flash, scan) {counts()},"
+              f" expected {want}")
+        launches["flash_attention"] += want[0]
+        launches["mamba_scan"] += want[1]
+        reset()
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def abstract(*shape, dtype=torch.int64):
+        return torch.empty(shape, dtype=dtype, device=meta)
+
+    def fits(what, c, extra=0) -> bool:
+        need = c.argument_bytes + c.peak_bytes + extra
+        print(f"phase22 count {what} on meta: arguments {c.argument_bytes} B"
+              f" + peak {c.peak_bytes} B" + (f" + {extra} B" if extra else "")
+              + f" = {need} B of the card's {total} B ({total - need} B "
+              f"free; a cut leaves at least {LONG_FREE:.0f} B)")
+        return need <= budget
+
+    def peak_within(tag):
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(peak <= budget, f"{tag}: peak {peak} B leaves less than "
+              f"{LONG_FREE:.0f} B of {total} B free")
+        return peak
+
+    def hold_peak(what, c, fn):
+        """Phase 15a's bar on the count of ``fn``'s step."""
+        req, alloc = measured_peak(torch, dev, fn)
+        gap = c.peak_bytes - req
+        ok = abs(gap) <= PEAK_REL * req + PEAK_ABS
+        print(f"phase22 peak {what} ({card}): counted on meta "
+              f"{c.peak_bytes} B; measured requested peak {req} B "
+              f"(max_memory_allocated rise {alloc} B); gap counted - "
+              f"measured {gap} B ({gap / max(req, 1):+.4%}; bar 2% + 64 "
+              f"MiB = {PEAK_REL * req + PEAK_ABS:.0f} B): "
+              f"{'held' if ok else 'MISSED'}")
+        check(ok, f"phase22 peak {what}: counted {c.peak_bytes} B, measured "
+              f"{req} B")
+
+    def decode(params, cfg, caches, nxt, pos, steps):
+        """``steps`` greedy decode steps: ``(caches, next tokens, all
+        logits finite, each step's wall in ms)``."""
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        walls = []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            logits, caches = decode_fn(params, caches, {"tokens": nxt},
+                                       pos + i, cfg=cfg)
+            finite &= all_finite(logits)
+            nxt = torch.argmax(logits[:, -1:], dim=-1)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return caches, nxt, bool(finite), walls
+
+    def ms_list(walls):
+        return [round(w, 3) for w in walls]
+
+    # serve's finiteness check is one min/max reduction on the card too
+    for bad in (float("nan"), float("inf"), float("-inf")):
+        probe = torch.zeros((3, 5), dtype=torch.bfloat16, device=dev)
+        check(bool(all_finite(probe)), "phase22: all_finite of zeros")
+        probe[1, 2] = bad
+        check(not bool(all_finite(probe)), f"phase22: all_finite missed {bad}")
+
+    # -- 22a: prefill_32k through serve, then decode to 32,768 -------------
+    t0 = time.perf_counter()
+    cfg = get_config("internlm2-1.8b")
+    S, N = LONG_PROMPT, LONG_NEW
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    aparams = transformer.abstract_params(cfg)
+    for B in LONG_BATCHES:
+        c_pre = roofline.analyze_step(prefill_fn, aparams, {
+            "tokens": abstract(B, S)}, cfg=cfg, max_len=S + N)
+        # the first layer's q, k and v are kept for the hold below
+        if fits(f"22a internlm2-1.8b prefill B {B} x S {S}", c_pre,
+                B * S * (h + 2 * kvh) * hd * 2):
+            break
+    else:
+        check(False, f"phase22a: no batch of {LONG_BATCHES} fits the card")
+    release(torch)
+    params = init_params(cfg, gen.manual_seed(220), dev)
+    kept = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset()
+    with kernel_calls(first_call("flash_attention",
+                                 lambda args, kw, out: kept.append(args[:3]))):
+        out = serve(cfg, params, requests=B, batch=B, prompt_len=S,
+                    new_tokens=N, seed=0, device=dev)
+    ran("phase22a serve", (cfg.n_layers, 0))
+    peak = peak_within("phase22a serve")
+    bs = out["batches"][0]
+    check(out["served"] == B and out["all_finite"]
+          and [t.shape for t in out["tokens"]] == [(B, N + 1)],
+          f"phase22a serve: served {out['served']}, finite "
+          f"{out['all_finite']}, tokens {[t.shape for t in out['tokens']]}")
+    ref_b = SHAPES["prefill_32k"].global_batch
+    print(f"phase22a serve internlm2-1.8b ({card}): full width, all "
+          f"{cfg.n_layers} layers ({count_params(cfg)} float32 params), "
+          f"bf16 compute; prefill_32k: {B} requests in one batch of {B} (the "
+          f"count's largest of {LONG_BATCHES}; the reference's B {ref_b} "
+          f"holds {ref_b * S * cfg.vocab_size * 2} B of bf16 logits), prompt"
+          f" {S} + {N} new tokens (max_len {S + N}); prefill "
+          f"{bs['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{bs['decode_s'] * 1e3 / N:.3f} ms a step (each step's naive "
+          f"attention reads and masks all {S + N} cache positions); "
+          f"launches flash_attention={cfg.n_layers} (layers x one prefill; "
+          f"decode none); peak device memory {peak} B of {total} B; all "
+          f"logits finite")
+    prompt = _prompts(cfg, rng, B, S, dev)
+    reset()
+    hold_peak(f"22a internlm2-1.8b prefill B {B} x S {S}", c_pre,
+              lambda: prefill_fn(params, prompt, cfg=cfg, max_len=S + N))
+    ran("phase22a held prefill", (2 * cfg.n_layers, 0))
+    del params, prompt, out
+    release(torch)
+
+    # flash_attention on layer 0's q, k, v of the serve's prefill
+    q, k, v = kept.pop()
+    check(tuple(q.shape) == (B, S, h, hd) and q.dtype == torch.bfloat16,
+          f"phase22a: captured q {tuple(q.shape)} {q.dtype}")
+    o, lse = flash_attention_cuda(q, k, v, causal=True)
+    o_p, lse_p = ref.flash_fwd_chunked(q, k, v, causal=True,
+                                       q_chunk=LONG_ATTN_CHUNK,
+                                       kv_chunk=LONG_ATTN_CHUNK)
+    sync()
+    bar = ATTN_TOL["bfloat16"]
+    check(bool(torch.isfinite(lse).all()) and bool(torch.isfinite(
+        lse_p).all()), "phase22a flash_attention: a row without a key")
+    # o band by band, each band of query rows to the bar times its own
+    # largest |o_p|: late rows average thousands of values and are far
+    # smaller than the first rows
+    bands = band_errors(o, o_p, LONG_ATTN_CHUNK)
+    e_o, e_l = max(e for e, _, _ in bands), max_diff(lse, lse_p)
+    share = worst_share(bands)
+    late = bands[-1]
+    check(share <= bar and e_l <= bar,
+          f"phase22a flash_attention at S {S}: o err / band's max |o| "
+          f"{share} (bar {bar}; bands {bands}), lse err {e_l} (bar {bar})")
+    del o, lse, o_p, lse_p
+    a_ms, al_ms, ap_ms, turns = attn_in_turns(torch, q, k, v)
+    ab_ms, ab_by = attn_bound(B, S, S, h, kvh, hd, elem=2)
+    tflop = attn_flops(B, S, S, h, kvh, hd) / 1e12
+    print(f"phase22a flash_attention at the prefill_32k shape (B {B}, S {S},"
+          f" H {h}, KV {kvh}, hd {hd}, bf16, causal; {S // 64 + (S % 64 > 0)}"
+          f" query tiles a head; layer 0's q, k, v of the serve; {card}): "
+          f"against flash_fwd_chunked (blocks of {LONG_ATTN_CHUNK}) in "
+          f"{len(bands)} bands of {LONG_ATTN_CHUNK} query rows, each held to "
+          f"{bar} of its own largest |o|: worst band err / max "
+          f"{share:.3e} (largest o err {e_o:.3e}); first band max |o| "
+          f"{bands[0][1]:.4f} mean {bands[0][2]:.4f}, last band max |o| "
+          f"{late[1]:.4f} mean {late[2]:.4f} err {late[0]:.3e} (bar there "
+          f"{bar * late[1]:.3e}); lse err {e_l:.3e} (bar {bar}); kernel "
+          f"{a_ms:.4f} ms (turns {turns['kernel']}) "
+          f"{tflop / a_ms * 1e3:.1f} TFLOP/s {ab_ms / a_ms:.2%} of bound; "
+          f"scaled_dot_product_attention {al_ms:.4f} ms (turns "
+          f"{turns['sdpa']}); kernel / SDPA {a_ms / al_ms:.3f}; plain "
+          f"{ap_ms:.4f} ms; bound {ab_ms:.6f} ms ({ab_by})")
+    n_flash_32k = 3 * cfg.n_layers      # the serve and the held prefills
+    readings["flash_attention"] = {
+        "shape": f"B {B}, S {S}, H {h}, KV {kvh}, hd {hd}, bf16, causal",
+        "launches": n_flash_32k, "max_abs_err": max(e_o, e_l), "ms": a_ms,
+        "plain_ms": ap_ms, "bound_ms": ab_ms, "bound_by": ab_by,
+        "library_ms": al_ms}
+    del q, k, v
+    release(torch)
+
+    # the float32 hold at S 32,768: the kernel's IEEE-FMA path vs chunked
+    hold_family(dev, gen, rng, "phase22a", "internlm2-1.8b", cfg, FIRST_TWO,
+                INTERNLM2_HOLD, 221,
+                (1, LONG_F32_SEQ, N, FAMILY_HOLD[3]))
+    print(f"phase22a took {time.perf_counter() - t0:.1f} s")
+
+    # -- 22b: decode_32k ----------------------------------------------------
+    t0 = time.perf_counter()
+    B, P, T = LONG_DECODE
+    c_pre = roofline.analyze_step(prefill_fn, aparams, {
+        "tokens": abstract(B, P)}, cfg=cfg, max_len=T)
+    c_dec = roofline.analyze_step(
+        decode_fn, aparams, transformer.abstract_cache(cfg, B, T),
+        {"tokens": abstract(B, 1)}, P, cfg=cfg)
+    check(fits(f"22b internlm2-1.8b prefill B {B} x S {P}, max_len {T}",
+               c_pre) and fits(f"22b internlm2-1.8b decode B {B} against a "
+                               f"{T}-long cache", c_dec),
+          "phase22b does not fit the card")
+    params = init_params(cfg, gen.manual_seed(222), dev)
+    prompt = _prompts(cfg, rng, B, P, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset()
+    t1 = time.perf_counter()
+    logits, caches = prefill_fn(params, prompt, cfg=cfg, max_len=T)
+    ok = bool(all_finite(logits))
+    nxt = torch.argmax(logits[:, -1:], dim=-1)
+    sync()
+    pre_ms = (time.perf_counter() - t1) * 1e3
+    del logits
+    caches, nxt, fin, walls = decode(params, cfg, caches, nxt, P, N)
+    ran("phase22b", (cfg.n_layers, 0))
+    check(ok and fin, "phase22b: a logit is not finite")
+    peak = peak_within("phase22b")
+    full_cache = 2 * cfg.n_layers * SHAPES["decode_32k"].global_batch * T \
+        * kvh * hd * 2
+    print(f"phase22b decode_32k internlm2-1.8b ({card}): all {cfg.n_layers}"
+          f" layers, B {B} (the reference's B "
+          f"{SHAPES['decode_32k'].global_batch} needs {full_cache} B of bf16 "
+          f"cache), prefill {P} tokens into {T}-long caches {pre_ms:.3f} ms;"
+          f" {N} decode steps ms {ms_list(walls)} (median "
+          f"{median(walls):.3f}; each step's naive attention reads and masks "
+          f"all {T} positions of every layer, as a full cache would cost); "
+          f"launches flash_attention={cfg.n_layers} (the prefill; decode "
+          f"none); peak device memory {peak} B of {total} B; all logits "
+          f"finite")
+    reset()
+    hold_peak(f"22b internlm2-1.8b decode step B {B} against a {T}-long "
+              "cache", c_dec, lambda: decode_fn(
+                  params, caches, {"tokens": nxt}, P + N, cfg=cfg))
+    ran("phase22b held decode", (0, 0))
+    del params, prompt, caches, nxt
+    release(torch)
+    print(f"phase22b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 22c: long_500k, ssm: falcon-mamba-7b block by block -----------------
+    t0 = time.perf_counter()
+    full = get_config("falcon-mamba-7b")
+    S = LONG_SSM_SEQ
+    one = cut_layers(full, (range(1), 0, 1))
+    per_layer = 4 * (count_params(cut_layers(full, (range(2), 0, 1)))
+                     - count_params(one))
+    top = 4 * count_params(one) - per_layer
+
+    def block(blk, x):
+        return blk(x, one, cache=None, pos=0, make_cache=True)
+
+    c_blk = roofline.analyze_step(block, transformer.abstract_params(
+        one).layers[0], abstract(1, S, full.d_model, dtype=torch.bfloat16))
+    room = budget - top - c_blk.argument_bytes - c_blk.peak_bytes
+    most = min(full.n_layers, int(room // per_layer) + 1)
+    depth = min(most, LONG_SSM_LAYERS)
+    check(depth >= 1, f"phase22c: no layer fits ({room} B of room)")
+    fits(f"22c falcon-mamba-7b block forward B 1 x S {S}", c_blk,
+         top + (depth - 1) * per_layer)
+    cfg = cut_layers(full, (range(depth), 0, 1))
+    params = init_params(cfg, gen.manual_seed(223), dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to(
+        dev)
+    scan = {}
+
+    def scan_hold(args, kw, out):
+        """Layer 0's launch: its y and h_final against the plain version
+        at S 524,288 (bf16), then 1,024 channels in float32; the kernel
+        timed in turns around the plain run."""
+        check(kw.get("h0") is None and args[0].dtype == torch.bfloat16,
+              "phase22c: layer 0's scan inputs")
+        xs = args[:6]
+        y, hf = out
+        b, s, di = xs[0].shape
+        n = xs[2].shape[1]
+
+        def kernel():
+            return selective_scan_cuda(*xs)
+
+        turns = [cuda_ms(torch, kernel, 2)]
+        segs, dh, hm, plain_ms = scan_plain_in_segments(
+            xs, y, hf, cfg.mamba_chunk, LONG_SCAN_SEGMENT)
+        turns.append(cuda_ms(torch, kernel, 2))
+        bar = LONG_SCAN_BF16_TOL
+        s_y, s_h = worst_share(segs), dh / max(hm, 1e-30)
+        check(s_y <= bar and s_h <= bar,
+              f"phase22c mamba_scan at S {s}: y err / segment's max |y| "
+              f"{s_y} (bar {bar}; segments {segs}), h_final err / max |h| "
+              f"{s_h} (bar {bar})")
+        c = slice(0, LONG_SCAN_CHANNELS)
+        fx = (xs[0][..., c].float().contiguous(),
+              xs[1][..., c].float().contiguous(), xs[2][c].contiguous(),
+              xs[3].float(), xs[4].float(), xs[5][c].contiguous())
+        fy, fh = selective_scan_cuda(*fx)
+        fsegs, fdh, fhm, _ = scan_plain_in_segments(
+            fx, fy, fh, cfg.mamba_chunk, LONG_SCAN_SEGMENT)
+        f_y, f_h = worst_share(fsegs), fdh / max(fhm, 1e-30)
+        check(max(f_y, f_h) <= SCAN_TOL["float32"],
+              f"phase22c mamba_scan float32 at S {s}: y err {f_y} of the "
+              f"segment's largest |y|, h_final err {f_h} of the largest |h|")
+        sb_ms, sb_by = scan_bound(b, s, di, n, elem=2)
+        scan.update(shape=f"B {b}, S {s}, di {di}, N {n}, bf16", b=b, s=s,
+                    di=di, n=n, segs=segs, s_y=s_y, dy=max(e for e, _, _ in
+                                                          segs),
+                    dh=dh, hm=hm, s_h=s_h, f_y=f_y, f_h=f_h,
+                    ms=median(turns), turns=turns, plain_ms=plain_ms,
+                    bound_ms=sb_ms, bound_by=sb_by)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset()
+    t1 = time.perf_counter()
+    with kernel_calls(first_call("mamba_scan", scan_hold)):
+        logits, states, walls = prefill_by_blocks(
+            params, cfg, {"tokens": tokens}, sync=sync)
+    ok = bool(all_finite(logits))
+    pre_s = time.perf_counter() - t1
+    ran("phase22c block prefill", (0, depth))
+    states, _, fin, d_walls = decode(params, cfg, states, torch.argmax(
+        logits, dim=-1), S, N)
+    ran("phase22c decode", (0, 0))
+    check(ok and fin, "phase22c: a logit is not finite")
+    check(all(st["h"].shape == (1, cfg.d_inner, cfg.ssm_state)
+              and bool(torch.isfinite(st["h"]).all()) for st in states),
+          "phase22c: a state is not finite")
+    peak = peak_within("phase22c")
+    print(f"phase22c long_500k falcon-mamba-7b ({card}): full width "
+          f"(d {cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}), "
+          f"{depth} of {full.n_layers} layers (the count fits {most}; "
+          f"{count_params(cfg)} float32 params), B 1 x S {S}, bf16 compute: "
+          f"the blocks run one by one as forward runs them, the last "
+          f"position unembedded; {pre_s:.2f} s in all, layers 1.. ms "
+          f"{ms_list([w * 1e3 for w in walls[1:]])} (layer 0 "
+          f"{walls[0] * 1e3:.1f} ms carries the scan's holds); {N} decode "
+          f"steps from the states ms {ms_list(d_walls)}; launches "
+          f"mamba_scan={depth} (decode none); peak device memory {peak} B "
+          f"of {total} B; logits and states finite")
+    x0 = transformer._embed_inputs(params, cfg, {"tokens": tokens})
+    reset()
+    hold_peak(f"22c falcon-mamba-7b block forward B 1 x S {S}", c_blk,
+              lambda: params.layers[0](x0, cfg, cache=None, pos=0,
+                                       make_cache=True))
+    ran("phase22c held block", (0, 2))
+    del params, tokens, states, logits, x0
+    release(torch)
+    first, last = scan["segs"][0], scan["segs"][-1]
+    print(f"phase22c mamba_scan at the long_500k shape ({scan['shape']}; "
+          f"{scan['s'] // 32} ring slots of 32 steps a CTA; layer 0's inputs;"
+          f" {card}): against selective_scan_chunked (chunks of "
+          f"{cfg.mamba_chunk}, {LONG_SCAN_SEGMENT} positions at a time), "
+          f"each segment's y held to {LONG_SCAN_BF16_TOL} of its own "
+          f"largest |y|: worst segment err / max {scan['s_y']:.3e} (largest"
+          f" y err {scan['dy']:.3e}; first segment max |y| {first[1]:.4f} "
+          f"mean {first[2]:.4f}, last max |y| {last[1]:.4f} mean "
+          f"{last[2]:.4f} err {last[0]:.3e}), h_final err {scan['dh']:.3e} "
+          f"(largest {scan['hm']:.3f}; {scan['s_h']:.3e} of it, bar "
+          f"{LONG_SCAN_BF16_TOL}); float32 on {LONG_SCAN_CHANNELS} channels"
+          f" ({scan['s'] // 16} slots of 16 steps): y {scan['f_y']:.3e} of "
+          f"the segment's largest |y|, h_final {scan['f_h']:.3e} of the "
+          f"largest |h| (bar {SCAN_TOL['float32']}); kernel "
+          f"{scan['ms']:.4f} ms (turns {scan['turns']}) "
+          f"{scan['bound_ms'] / scan['ms']:.2%} of bound; plain "
+          f"{scan['plain_ms']:.4f} ms (CUDA events around its "
+          f"{len(scan['segs'])} calls alone); library none; bound "
+          f"{scan['bound_ms']:.6f} ms ({scan['bound_by']})")
+    readings["mamba_scan"] = {
+        "shape": scan["shape"], "launches": depth + 2,
+        "max_abs_err": max(scan["dy"], scan["dh"]), "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"], "library_ms": None}
+    print(f"phase22c took {time.perf_counter() - t0:.1f} s")
+
+    # -- 22d: long_500k, hybrid: jamba-1.5-large's layout[:5] ---------------
+    t0 = time.perf_counter()
+    P, T = LONG_HYBRID
+    cfg = cut_layers(get_config("jamba-1.5-large-398b"), (range(5), 0, 5),
+                     param_dtype="bfloat16")
+    attn = sum(spec.mixer == "attn" for spec in cfg.layout)
+    ap = transformer.abstract_params(cfg)
+    c_pre = roofline.analyze_step(prefill_fn, ap, {
+        "tokens": abstract(1, P)}, cfg=cfg, max_len=T)
+    c_dec = roofline.analyze_step(
+        decode_fn, ap, transformer.abstract_cache(cfg, 1, T),
+        {"tokens": abstract(1, 1)}, P, cfg=cfg)
+    check(fits(f"22d jamba-1.5-large layout[:5] prefill B 1 x S {P}, "
+               f"max_len {T}", c_pre)
+          and fits(f"22d jamba-1.5-large layout[:5] decode against a "
+                   f"{T}-long cache", c_dec), "phase22d does not fit the card")
+    params = init_params(cfg, gen.manual_seed(224), dev)
+    prompt = _prompts(cfg, rng, 1, P, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset()
+    t1 = time.perf_counter()
+    logits, caches = prefill_fn(params, prompt, cfg=cfg, max_len=T)
+    ok = bool(all_finite(logits))
+    nxt = torch.argmax(logits[:, -1:], dim=-1)
+    sync()
+    pre_ms = (time.perf_counter() - t1) * 1e3
+    del logits
+    check(caches[[s.mixer for s in cfg.layout].index("attn")]["k"].shape[1]
+          == T, "phase22d: the attention cache is not max_len long")
+    caches, nxt, fin, walls = decode(params, cfg, caches, nxt, P, N)
+    ran("phase22d", (attn, cfg.n_layers - attn))
+    check(ok and fin, "phase22d: a logit is not finite")
+    peak = peak_within("phase22d")
+    print(f"phase22d long_500k jamba-1.5-large layout[:5] ({card}): full "
+          f"width, {attn} attention + {cfg.n_layers - attn} Mamba layers "
+          f"({count_params(cfg)} bf16 params), B 1, prefill {P} tokens into "
+          f"a {T}-long cache {pre_ms:.3f} ms; {N} decode steps ms "
+          f"{ms_list(walls)} (each reads and masks all {T} cache positions "
+          f"of the attention layer); launches flash_attention={attn} "
+          f"mamba_scan={cfg.n_layers - attn} (the prefill; decode none); "
+          f"peak device memory {peak} B of {total} B; all logits finite")
+    del params, prompt, caches, nxt
+    release(torch)
+    print(f"phase22d took {time.perf_counter() - t0:.1f} s")
+
+    # -- 22e: qwen2.5-32b at full depth, bf16 parameters --------------------
+    t0 = time.perf_counter()
+    full = get_config("qwen2.5-32b")
+    S, Bq = 1024, FAMILY_SERVE["batch"]
+    n_new = FAMILY_SERVE["new_tokens"]
+    for depth in range(full.n_layers, 0, -8):
+        cut = None if depth == full.n_layers else (range(depth), 0, 1)
+        cfg = cut_layers(full, cut, param_dtype="bfloat16")
+        c_pre = roofline.analyze_step(
+            prefill_fn, transformer.abstract_params(cfg),
+            {"tokens": abstract(Bq, S)}, cfg=cfg, max_len=S + n_new)
+        if fits(f"22e qwen2.5-32b {depth} layers prefill B {Bq} x S {S}",
+                c_pre, Bq * S * cfg.vocab_size):
+            break
+    else:
+        check(False, "phase22e: no depth of qwen2.5-32b fits the card")
+    check(depth < full.n_layers or count_params(cfg) == QWEN32_PARAMS,
+          f"phase22e: {count_params(cfg)} parameters")
+    release(torch)
+    t1 = time.perf_counter()
+    params = init_params(cfg, gen.manual_seed(225), dev)
+    sync()
+    t_init = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset()
+    out = serve(cfg, params, prompt_len=S, seed=0, device=dev,
+                **FAMILY_SERVE)
+    bs = out["batches"]
+    ran("phase22e serve", (cfg.n_layers * len(bs), 0))
+    peak = peak_within("phase22e serve")
+    check(out["served"] == FAMILY_SERVE["requests"] and out["all_finite"]
+          and sorted({t.shape for t in out["tokens"]}) == [(Bq, n_new + 1)],
+          f"phase22e serve: served {out['served']}, finite "
+          f"{out['all_finite']}")
+    print(f"phase22e serve qwen2.5-32b ({card}): full width, {depth} of "
+          f"{full.n_layers} layers ({count_params(cfg)} bf16 params, drawn "
+          f"on the card in {t_init:.1f} s); "
+          f"{FAMILY_SERVE['requests']} requests, batch {Bq}, prompt {S}, "
+          f"{n_new} new tokens, bf16 compute; launches "
+          f"flash_attention={cfg.n_layers * len(bs)}; prefill ms "
+          f"{[round(b['prefill_s'] * 1e3, 3) for b in bs]}; decode ms a "
+          f"step {[round(b['decode_s'] * 1e3 / n_new, 3) for b in bs]}; "
+          f"tok/s {out['throughput_tok_s']}; wall {out['wall_s']} s; peak "
+          f"device memory {peak} B of {total} B; all logits finite")
+    prompt = _prompts(cfg, rng, Bq, S, dev)
+    reset()
+    hold_peak(f"22e qwen2.5-32b prefill B {Bq} x S {S}, {depth} layers",
+              c_pre, lambda: prefill_fn(params, prompt, cfg=cfg,
+                                        max_len=S + n_new))
+    ran("phase22e held prefill", (2 * cfg.n_layers, 0))
+    launches_e = cfg.n_layers * (len(bs) + 2)
+    del params, prompt, out
+    release(torch)
+    hold_family(dev, gen, rng, "phase22e", "qwen2.5-32b", full, FIRST_TWO,
+                QWEN32_HOLD, 226)
+    print(f"phase22e took {time.perf_counter() - t0:.1f} s")
+    print(f"phase22 launches on the long shapes' runs: {launches} "
+          f"(flash_attention {n_flash_32k} at S {LONG_PROMPT}, {launches_e} "
+          f"in 22e); took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, **readings}
 
 
 if __name__ == "__main__":

@@ -40,10 +40,11 @@ def mamba_schema(cfg: ModelConfig) -> Dict[str, ParamDef]:
 def _conv(xp: torch.Tensor, conv_w: torch.Tensor, s: int) -> torch.Tensor:
     """Causal depthwise conv of the padded ``xp`` (B,s+kc-1,di): the taps
     summed in index order in the activation dtype, as the reference's
-    ``sum(...)`` rounds them."""
+    ``sum(...)`` rounds them, into one buffer (an in-place add rounds as
+    the out-of-place one)."""
     out = xp[:, 0:s] * conv_w[0]
     for i in range(1, conv_w.shape[0]):
-        out = out + xp[:, i:i + s] * conv_w[i]
+        out += xp[:, i:i + s] * conv_w[i]
     return out
 
 
@@ -82,19 +83,23 @@ class Mamba(Params):
         pad = torch.zeros((b, kc - 1, cfg.d_inner), dtype=dt_,
                           device=x.device)
         xp = torch.cat([pad, xh], dim=1)                       # (B,S+kc-1,di)
+        conv_tail = (xp[:, xp.shape[1] - (kc - 1):].clone() if make_cache
+                     else None)
         xc = F.silu(_conv(xp, self.conv_w.to(dt_), s) + self.conv_b.to(dt_))
-
+        # each (B,S,di) temporary goes once read (8.6 GB at B 1 x S 524,288
+        # of falcon-mamba-7b): the block peaks under six of them, not nine
+        del xp
         dt, A, bmat, cmat = self._ssm_params(xc, cfg)
         y, h = ops.selective_scan(xc, dt, A, bmat, cmat, self.d_skip.float(),
                                   impl=cfg.attention_impl,
                                   chunk=cfg.mamba_chunk)
+        del xc, dt
         y = (y * F.silu(z)).to(dt_)
         out = y @ self.out_proj.to(dt_)
 
         new_state = None
         if make_cache:
-            new_state = {"h": h.float(),
-                         "conv": xp[:, xp.shape[1] - (kc - 1):].clone()}
+            new_state = {"h": h.float(), "conv": conv_tail}
         return out, new_state
 
     def _decode(self, x, cfg, state):
