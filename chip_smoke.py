@@ -67,24 +67,14 @@ system's real sizes and holds every result to the host:
    against the same run through the plain versions (logits within 2e-4,
    tokens equal); and, reported only, the full-depth bfloat16 prefill's
    largest logit difference between the two;
-11. the simulation layer (``repro_torch.sim``) at the full-run sizes of
-   the port's ``bench_fleet`` (its ``sizes()`` and ``scenarios()``,
-   imported): ``FleetSim`` over the heterogeneous-demand
-   scenario (250 offerings, 128 replicas, traces recorded) through
-   ``torch:fused``, ``torch`` and ``numpy``, and over the interrupt storm
-   and the pressure crunch (250 offerings, 256 replicas each) through
-   ``torch:fused`` and ``numpy``; one ``ClusterSim`` of the storm and one
-   of the diurnal serving scenario (analytic perf model) under the default
-   backend (the card) against ``numpy``; each fleet once a backend
-   (``numpy``, then the device backends).  Every replica's
-   JSONL trace,
-   decision records and float totals equal NumPy's byte for byte, no
-   fused fleet falls back to a host solve, ``fused_rows`` launches in every
-   ``torch:fused`` fleet, ``cover_dp`` in every ``torch`` run, and no
-   standalone ``score`` launch; prints replicas/s, memo hit rate, the
-   batched searches with their widths and their share of the wall,
-   device-market cache misses and the kernels' share of each device
-   fleet's wall (CUDA events around every launch);
+11. the simulation layer (``repro_torch.sim``): one ``ClusterSim`` of
+   the port's ``bench_fleet`` interrupt storm (its ``sizes()`` and
+   ``scenarios()``, imported; 250 offerings) and one of the diurnal
+   serving scenario (analytic perf model) under the default backend (the
+   card) against ``numpy``: the JSONL trace, decision records and float
+   totals equal NumPy's byte for byte, ``cover_dp`` launched, no
+   standalone ``score`` launch; the kernels' share of the wall (CUDA
+   events around every launch).  bench_fleet's fleets run in phase 21;
 12. the hardened, regional and serving policies at their benchmarks' sizes
    (the scenarios of ``repro_torch.benchmarks.bench_chaos`` and
    ``.bench_region``, ``.bench_serve``'s policies and horizon):
@@ -217,18 +207,10 @@ system's real sizes and holds every result to the host:
    same steps through the plain versions (losses and grad norms within
    1e-4, launches = steps x layers of each kind x ``remat_passes``, the
    plain run launching nothing), qwen3-moe's also under remat "none"
-   (within 1e-5 of "dots": the recompute routes as the forward did); at
-   full width, three steps each of qwen3-moe-30b-a3b ``layout[:4]`` (B
-   4; a traced step), jamba-1.5-large ``(layout[2], layout[4])`` (B 2:
-   both kernels' gradient functions in one step, the scan at d_inner
-   16,384), kimi-k2 ``layout[:1]`` (hd 112), stablelm-3b (hd 80),
-   qwen2.5-14b ``layout[:6]`` (GQA 5, qkv bias), internvl2-1b (1,280
-   positions: the vision prefix masked from the loss) and
-   musicgen-large (four codebooks) at B 4 x S 1024, with losses, step
-   walls, positions/s, share of the bf16 peak (6 x active parameters),
-   launches and peak memory; and ``launch.train.main`` on the smoke
-   configs of qwen3-moe and jamba (``cover_dp`` and each family's
-   sequence kernel launched) ("phase18" lines);
+   (within 1e-5 of "dots": the recompute routes as the forward did); and
+   ``launch.train.main`` on the smoke configs of qwen3-moe and jamba
+   (``cover_dp`` and each family's sequence kernel launched) ("phase18"
+   lines); their full-width runs are phase 23c's, at S 4,096;
 19. the port's five examples (``repro_torch.examples``) through their
    ``main``, with no device flag: (a) ``quickstart``, ``provision_cluster``
    (48 h, 200 pods) and ``run_scenario`` at its full-size defaults (36 h,
@@ -320,7 +302,28 @@ system's real sizes and holds every result to the host:
    logit finite, launches = layers x prefills (decode none), and the
    counted peak of 22a's prefill, 22b's decode step, 22c's block forward
    and 22e's prefill within 2% + 64 MiB of the allocator's ("phase22"
-   lines).
+   lines);
+23. the reference's train_4k shape (S 4,096) trained through
+   ``make_train_step``, ``init_opt_state`` and ``make_batch`` at full
+   width (float32 parameters and AdamW moments, bf16 compute, remat
+   "dots", the elastic trainer's schedule), each batch the largest of 4,
+   2 and 1 whose first step, counted on ``meta``, leaves 8 GB of the card
+   free: (a) internlm2-1.8b at all 24 layers, 3 steps, launches = steps x
+   layers x ``remat_passes``, layer 0's first forward launch held to
+   ``flash_fwd_chunked`` band by band (4 bands of 1,024 query rows, each
+   to 3e-2 of its own largest |o|) and timed against SDPA in turns, the
+   recompute backward (``flash_bwd_chunked``) timed against SDPA's
+   forward + backward, the counted peak held to the allocator's (2% + 64
+   MiB) and a traced step; (b) float32 ``layout[:2]`` cuts of
+   internlm2-1.8b, falcon-mamba-7b (16 scan chunks a row) and internvl2-1b
+   (4,352 positions: a ragged fifth attention block) at B 1, 2 steps
+   through the kernels against the plain versions (losses and grad norms
+   within 1e-4, the plain run launching nothing); (c) falcon-mamba-7b at
+   8 layers (layer 0's first scan launch held to
+   ``selective_scan_chunked`` 1,024 positions at a time and timed) and
+   every cut of :data:`TRAIN_FAMILIES`, 2 steps each (a traced qwen3-moe
+   step): losses finite, launches exact, each peak within the card beside
+   its count ("phase23" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -335,8 +338,9 @@ readings at the new widths in ``scale``, phase 17's serve launches in
 ``launches_train_families``, phase 19's in ``launches_examples``,
 phase 20's in ``launches_paper`` and its readings at the widest launches
 in ``paper``, phase 21's in ``launches_drivers``, phase 22's in
-``launches_long`` and its readings at the long shapes in ``long``); the
-last line
+``launches_long`` and its readings at the long shapes in ``long``, phase
+23's in ``launches_train_4k`` and its readings at the train_4k shapes in
+``train_4k``); the last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -565,14 +569,14 @@ def main() -> int:
 
 
 def run(dev) -> dict:
-    """Phases 1-22 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
+    """Phases 1-23 on ``dev`` (5-7 in :func:`run_fused`, 8-10 in
     :func:`run_serving`, 11 in :func:`run_sim`, 12 in :func:`run_policies`,
     13 in :func:`run_moe`, 14 in :func:`run_train`, 15 in
     :func:`run_cost`, 16 in :func:`run_scale`, 17 in
     :func:`run_families`, 18 in :func:`run_train_families`, 19 in
     :func:`run_examples`, 20 in :func:`run_paper`, 21 in
-    :func:`run_drivers`, 22 in :func:`run_long`); returns the kernel
-    record."""
+    :func:`run_drivers`, 22 in :func:`run_long`, 23 in
+    :func:`run_train_4k`); returns the kernel record."""
     import torch
 
     from repro_torch.core import (KubePACSProvisioner, NumpyBackend, Request,
@@ -824,6 +828,7 @@ def run(dev) -> dict:
     paper = run_paper(dev)
     drivers = run_drivers(dev, cost["dryrun"])
     long = run_long(dev)
+    train_4k = run_train_4k(dev)
     for k in kernels:
         k["launches_drivers"] = drivers.get(k["name"], 0)
         k["launches"] += k["launches_drivers"]
@@ -857,6 +862,9 @@ def run(dev) -> dict:
             k["launches_long"] = long["launches"][k["name"]]
             k["launches"] += k["launches_long"]
             k["long"] = long[k["name"]]
+            k["launches_train_4k"] = train_4k["launches"][k["name"]]
+            k["launches"] += k["launches_train_4k"]
+            k["train_4k"] = train_4k[k["name"]]
         if k["name"] == "flash_attention":
             k["launches_moe"] = moe["launches"]
             k["launches"] += moe["launches"]
@@ -1435,6 +1443,39 @@ def attn_in_turns(torch, q, k, v):
     return median(turns["kernel"]), median(turns["sdpa"]), p_ms, turns
 
 
+def attn_grads_in_turns(torch, q, k, v, o, lse, do, chunk, reps=10):
+    """``(backward ms, forward + backward ms, SDPA forward + backward ms,
+    turns)`` of causal attention over q ``(B,S,H,hd)`` and k, v
+    ``(B,S,KV,hd)`` for the output gradient ``do``: the recompute backward
+    alone (``ref.flash_bwd_chunked``, blocks of ``chunk``, from the
+    kernel's ``(o, lse)``), then ``ops.FlashAttention`` (the kernel, then
+    that backward) and ``scaled_dot_product_attention`` (``is_causal``,
+    ``enable_gqa``), each forward + backward, in turns (kernel, SDPA, SDPA,
+    kernel; ``reps`` calls a turn, the medians of each)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    bwd_ms = cuda_ms(torch, lambda: ref.flash_bwd_chunked(
+        qd, kd, vd, o, lse, do, q_chunk=chunk, kv_chunk=chunk), reps)
+    qg, kg, vg = (t.requires_grad_() for t in (qd, kd, vd))
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    timed = {"kernel": lambda: torch.autograd.grad(ops.FlashAttention.apply(
+                 qg, kg, vg, True, True, chunk, chunk, False), (qg, kg, vg),
+                 do),
+             "sdpa": lambda: torch.autograd.grad(
+                 F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True),
+                 (qt, kt, vt), dot)}
+    turns = {"kernel": [], "sdpa": []}
+    for who in ("kernel", "sdpa", "sdpa", "kernel"):
+        turns[who].append(cuda_ms(torch, timed[who], reps))
+    return bwd_ms, median(turns["kernel"]), median(turns["sdpa"]), turns
+
+
 def trace_steps(cfg, params, prompt, tag):
     """Where one prefill of ``prompt`` and one decode step after it spend
     device time, by kernel (``traced``): prints a "``tag`` prefill" and a
@@ -1881,11 +1922,10 @@ def outcome(results):
             for r in results]
 
 
-def fleet_in_turns(drv, name, scenario, replicas, specs, turns=True):
+def fleet_in_turns(drv, name, scenario, replicas, specs):
     """``FleetSim`` of ``scenario`` over ``replicas`` interrupt seeds, traces
     recorded, through ``numpy`` and each of ``specs`` in turns (numpy,
-    specs, specs reversed, numpy; with ``turns`` false numpy and specs
-    once each) under ``drv`` (a :class:`SimDriver`):
+    specs, specs reversed, numpy) under ``drv`` (a :class:`SimDriver`):
     every run equal to the first numpy run's, no fused fallback solve,
     ``fused_rows`` launched by every ``torch:fused`` run and ``cover_dp``
     by every ``torch`` run; prints a line a run and the replicas/s in
@@ -1896,9 +1936,7 @@ def fleet_in_turns(drv, name, scenario, replicas, specs, turns=True):
     ref = None
     rates = collections.defaultdict(list)
     runs = []
-    order = (("numpy", *specs, *reversed(specs), "numpy") if turns
-             else ("numpy", *specs))
-    for spec in order:
+    for spec in ("numpy", *specs, *reversed(specs), "numpy"):
         sims = []
 
         def go():
@@ -1956,9 +1994,9 @@ def fleet_in_turns(drv, name, scenario, replicas, specs, turns=True):
 
 
 def run_sim(dev) -> dict:
-    """Phase 11 on ``dev``: the simulation layer at ``bench_fleet``'s
-    full-run sizes (its scenarios and replica counts, imported); returns
-    each kernel's launches on this path."""
+    """Phase 11 on ``dev``: ``ClusterSim`` of ``bench_fleet``'s storm and
+    of the diurnal serving scenario against ``numpy``; returns each
+    kernel's launches on this path."""
     import torch
 
     from repro_torch.benchmarks import bench_fleet
@@ -1989,16 +2027,10 @@ def run_sim(dev) -> dict:
                   f"{k_ms:.3f} ms, share of wall {k_ms / 1e3 / wall:.4f}"
                   + (": equal to numpy" if spec != "numpy" else ""))
 
-    replicas, _, hetero_replicas, tweak = bench_fleet.sizes()
-    storm, crunch, hetero = bench_fleet.scenarios(tweak)
-    # one run a backend: phase 21 times bench_fleet itself
-    fleet_in_turns(drv, "hetero", hetero, hetero_replicas,
-                   ("torch:fused", "torch"), turns=False)
-    fleet_in_turns(drv, "storm", storm, replicas, ("torch:fused",),
-                   turns=False)
-    fleet_in_turns(drv, "crunch", crunch, replicas, ("torch:fused",),
-                   turns=False)
-    standalone("storm", storm)
+    # bench_fleet's storm; its fleets run in phase 21 (bench_fleet through
+    # the runner on the card, then under numpy, records equal)
+    tweak = bench_fleet.sizes()[3]
+    standalone("storm", bench_fleet.scenarios(tweak)[0])
     with _pinned_mode("analytic"):
         standalone("serving diurnal", serving_scenario("diurnal"))
     clear_caches()
@@ -2366,13 +2398,16 @@ def kernel_counts() -> dict:
             "cover_dp": cdp.cover_dp.launches}
 
 
-def reset_counts() -> None:
+def reset_counts(to=None) -> None:
+    """Each count of :func:`kernel_counts` set to 0, or to ``to``'s."""
     from repro_torch.core import cover_dp as cdp
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.mamba_scan import selective_scan_cuda
 
-    flash_attention_cuda.launches = selective_scan_cuda.launches = 0
-    cdp.cover_dp.launches = 0
+    to = to or {}
+    flash_attention_cuda.launches = to.get("flash_attention", 0)
+    selective_scan_cuda.launches = to.get("mamba_scan", 0)
+    cdp.cover_dp.launches = to.get("cover_dp", 0)
 
 
 def step_launches(cfg, n_steps: int) -> dict:
@@ -2387,15 +2422,18 @@ def step_launches(cfg, n_steps: int) -> dict:
             "mamba_scan": (cfg.n_layers - attn) * rp, "cover_dp": 0}
 
 
-def positions(cfg) -> int:
-    """A training row's positions: :data:`TRAIN_SEQ` tokens (or audio
-    frames), after the vision prefix of a VLM."""
-    return (cfg.vision_prefix if cfg.input_mode == "vlm" else 0) + TRAIN_SEQ
+def positions(cfg, seq=None) -> int:
+    """A training row's positions: ``seq`` (:data:`TRAIN_SEQ` unless given)
+    tokens (or audio frames), after the vision prefix of a VLM."""
+    return ((cfg.vision_prefix if cfg.input_mode == "vlm" else 0)
+            + (seq or TRAIN_SEQ))
 
 
-def hold_train(dev, tag, arch, cut, seed, data_seed, remat_none=False):
-    """A float32 cut of ``arch`` at full width (:func:`cut_layers`), three
-    ``make_train_step`` steps of :data:`HOLD_ROWS` rows from one seeded
+def hold_train(dev, tag, arch, cut, seed, data_seed, remat_none=False,
+               seq=None, rows=None, n_steps=None):
+    """A float32 cut of ``arch`` at full width (:func:`cut_layers`),
+    ``n_steps`` (:data:`TRAIN_STEPS`) ``make_train_step`` steps of ``rows``
+    (:data:`HOLD_ROWS`) x :func:`positions` of ``seq`` from one seeded
     init, through the kernels and through the plain versions (and, with
     ``remat_none``, through the kernels without remat): launches as
     :func:`step_launches` says and none in the plain run, losses and grad
@@ -2412,7 +2450,8 @@ def hold_train(dev, tag, arch, cut, seed, data_seed, remat_none=False):
     from repro_torch.train.loop import make_train_step
 
     cfg = cut_layers(get_config(arch), cut, dtype="float32")
-    seq = positions(cfg)
+    seq = positions(cfg, seq)
+    rows, n_steps = rows or HOLD_ROWS, n_steps or TRAIN_STEPS
     variants = [("cuda", "dots"), ("chunked", "dots")] + (
         [("cuda", "none")] if remat_none else [])
     runs = {}
@@ -2426,9 +2465,9 @@ def hold_train(dev, tag, arch, cut, seed, data_seed, remat_none=False):
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         got = []
-        for i in range(TRAIN_STEPS):
+        for i in range(n_steps):
             batch = make_batch(c, DataConfig(seed=data_seed), step=i,
-                               batch=HOLD_ROWS, seq=seq)
+                               batch=rows, seq=seq)
             params, opt, m = step(params, opt, batch)
             got.append((float(m["loss"]), float(m["grad_norm"])))
         runs[impl, remat] = (got, kernel_counts(),
@@ -2441,7 +2480,7 @@ def hold_train(dev, tag, arch, cut, seed, data_seed, remat_none=False):
             runs[a][0], runs[b][0]) for x, y in zip(ka, kb))
 
     kern, plain = runs["cuda", "dots"], runs["chunked", "dots"]
-    want = step_launches(cfg, TRAIN_STEPS)
+    want = step_launches(cfg, n_steps)
     check(kern[1] == want, f"{tag} {arch} hold: launches {kern[1]}, "
           f"expected {want}")
     check(sum(plain[1].values()) == 0,
@@ -2455,7 +2494,7 @@ def hold_train(dev, tag, arch, cut, seed, data_seed, remat_none=False):
     if remat_none:
         none = runs["cuda", "none"]
         want_none = step_launches(dataclasses.replace(
-            cfg, remat_policy="none"), TRAIN_STEPS)
+            cfg, remat_policy="none"), n_steps)
         check(none[1] == want_none, f"{tag} {arch} hold remat none: "
               f"launches {none[1]}, expected {want_none}")
         d_remat = rel_diff(("cuda", "dots"), ("cuda", "none"))
@@ -2467,7 +2506,7 @@ def hold_train(dev, tag, arch, cut, seed, data_seed, remat_none=False):
                  f"{d_remat:.3e} (bar 1e-5)")
     print(f"{tag} hold {arch} ({card_line()}): {cut_label(cut)} at full "
           f"width ({count_params(cfg)} float32 params, float32 compute), "
-          f"{TRAIN_STEPS} train steps (B {HOLD_ROWS}, S {seq}, remat "
+          f"{n_steps} train steps (B {rows}, S {seq}, remat "
           f"{cfg.remat_policy}) through the kernels vs the plain versions: "
           f"(loss, grad norm) {kern[0]} vs {plain[0]}, largest relative "
           f"diff {diff:.3e} (bar 1e-4); launches {kern[1]}, plain "
@@ -2475,18 +2514,28 @@ def hold_train(dev, tag, arch, cut, seed, data_seed, remat_none=False):
           f"B)" + remat)
 
 
-def train_full(dev, tag, arch, cut, seed, n_steps, rows, trace=False):
+def train_full(dev, tag, arch, cut, seed, n_steps, rows, trace=False,
+               seq=None, first=None, peak_bar=False) -> dict:
     """``arch`` at full width cut to ``cut`` (float32 parameters and AdamW
     moments, the config's bf16 compute and remat), ``n_steps``
-    ``make_train_step`` steps of ``rows`` x :func:`positions` from a seeded
-    init, under the elastic trainer's default schedule: losses finite,
-    launches as :func:`step_launches` says, the peak within the card;
-    prints the step walls, positions/s, share of the bf16 peak and peak
-    memory in a ``tag`` line (and, with ``trace``, one traced step).  The
-    first step's peak is counted on ``meta`` before anything is drawn on
-    the card (``roofline.analyze_step``: parameters, moments and the peak
-    of live bytes above them) and must fit the card too.  Returns the
-    launches."""
+    ``make_train_step`` steps of ``rows`` x :func:`positions` of ``seq``
+    from a seeded init, under the elastic trainer's default schedule:
+    losses finite, launches as :func:`step_launches` says, the peak within
+    the card; prints the step walls, positions/s, share of the bf16 peak
+    and peak memory in a ``tag`` line (and, with ``trace``, one traced
+    step).  The first step's peak is counted on ``meta`` before anything is
+    drawn on the card (``roofline.analyze_step``: parameters, moments and
+    the peak of live bytes above them) and must leave :data:`LONG_FREE`
+    bytes of the card free; ``rows`` may be a tuple of batches, largest
+    first, of which
+    the first that the count fits runs.  ``first`` is ``(kernel name,
+    fn)``: the first launch of that kernel in the first step (layer 0's
+    forward) is kept, and once the step is done ``fn(args, kwargs,
+    outputs)`` holds it, its own launches off the counts.  With
+    ``peak_bar`` two more steps hold the count's peak to the allocator's
+    requested peak (:func:`measured_peak`, phase 15a's bar).  Returns
+    ``{"launches", "rows", "counted", "peak"}``, the launches those of
+    every step run."""
     import torch
 
     from repro_torch import optim, roofline
@@ -2498,19 +2547,28 @@ def train_full(dev, tag, arch, cut, seed, n_steps, rows, trace=False):
 
     full = get_config(arch)
     cfg = cut_layers(full, cut)
-    seq = positions(cfg)
+    seq = positions(cfg, seq)
     total = torch.cuda.get_device_properties(dev).total_memory
     # the elastic trainer's default schedule (5 warm-up steps)
     step = make_train_step(cfg, optim.OptConfig(warmup_steps=5,
                                                 total_steps=1000))
     t0 = time.perf_counter()
     ap = abstract_params(cfg)
-    c = roofline.analyze_step(step, ap, optim.init_opt_state(ap), make_batch(
-        cfg, DataConfig(seed=1), step=0, batch=rows, seq=seq))
-    counted = c.argument_bytes + c.peak_bytes
+    for rows in (rows if isinstance(rows, tuple) else (rows,)):
+        c = roofline.analyze_step(step, ap, optim.init_opt_state(ap),
+                                  make_batch(cfg, DataConfig(seed=1), step=0,
+                                             batch=rows, seq=seq))
+        counted = c.argument_bytes + c.peak_bytes
+        print(f"{tag} count {arch} {cut_label(cut)} train step B {rows} x "
+              f"S {seq} on meta: arguments {c.argument_bytes} B + peak "
+              f"{c.peak_bytes} B = {counted} B of the card's {total} B "
+              f"({total - counted} B free; a cut leaves at least "
+              f"{LONG_FREE:.0f} B)")
+        if counted <= total - LONG_FREE:
+            break
     t_count = time.perf_counter() - t0
-    check(counted < total, f"{tag} {arch}: {counted} B counted on meta, "
-          f"over {total} B")
+    check(counted <= total - LONG_FREE, f"{tag} {arch}: {counted} B "
+          f"counted on meta, over {total} B less {LONG_FREE:.0f} B")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dev)
@@ -2518,16 +2576,30 @@ def train_full(dev, tag, arch, cut, seed, n_steps, rows, trace=False):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, walls = [], []
+    losses, walls, kept = [], [], []
+    peak = 0
     reset_counts()
     for i in range(n_steps):
         b = make_batch(cfg, DataConfig(seed=1), step=i, batch=rows, seq=seq)
+        catch = (kernel_calls(first_call(first[0], lambda *call: kept.append(
+            call))) if first and i == 0 else contextlib.nullcontext())
         t0 = time.perf_counter()
-        params, opt, m = step(params, opt, b)
+        with catch:
+            params, opt, m = step(params, opt, b)
         losses.append(float(m["loss"]))        # synchronises
         walls.append(time.perf_counter() - t0)
+        if kept:
+            # the kept launch's hold, off the counts and the peak
+            peak = torch.cuda.max_memory_allocated(dev)
+            counts = kernel_counts()
+            first[1](*kept.pop())
+            reset_counts(counts)
+            release(torch)
+            torch.cuda.reset_peak_memory_stats(dev)
+    check(not first or peak, f"{tag} {arch}: no {first and first[0]} launch "
+          f"kept")
     got = kernel_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = max(peak, torch.cuda.max_memory_allocated(dev))
     want = step_launches(cfg, n_steps)
     check(all(math.isfinite(x) for x in losses),
           f"{tag} {arch}: losses {losses}")
@@ -2551,6 +2623,27 @@ def train_full(dev, tag, arch, cut, seed, n_steps, rows, trace=False):
           f"{remat_passes(cfg)}); peak device memory {peak} B of {total} B, "
           f"{peak / counted - 1:+.2%} on the {counted} B counted on meta "
           f"before the run ({t_count:.1f} s to count)")
+    launches = collections.Counter(got)
+    if peak_bar:
+        reset_counts()
+        req, alloc = measured_peak(torch, dev, lambda: step(params, opt, b))
+        held = kernel_counts()
+        want = step_launches(cfg, 2)
+        check(held == want, f"{tag} {arch} held step: launches {held}, "
+              f"expected {want}")
+        launches.update(held)
+        gap = c.peak_bytes - req
+        ok = abs(gap) <= PEAK_REL * req + PEAK_ABS
+        print(f"{tag} peak {arch} train step B {rows} x S {seq} "
+              f"({card_line()}): counted on meta {c.peak_bytes} B "
+              f"(arguments {c.argument_bytes} B, outputs {c.output_bytes} "
+              f"B); measured requested peak {req} B (max_memory_allocated "
+              f"rise {alloc} B); gap counted - measured {gap} B "
+              f"({gap / max(req, 1):+.4%}; bar 2% + 64 MiB = "
+              f"{PEAK_REL * req + PEAK_ABS:.0f} B): "
+              f"{'held' if ok else 'MISSED'}")
+        check(ok, f"{tag} peak {arch}: counted {c.peak_bytes} B, measured "
+              f"{req} B")
     if trace:
         t_wall, busy, top = traced(torch, lambda: step(params, opt, b))
         print(f"{tag} trace {arch} train step: traced wall {t_wall:.3f} "
@@ -2559,7 +2652,8 @@ def train_full(dev, tag, arch, cut, seed, n_steps, rows, trace=False):
                   f"{k} {v:.3f} ms" for k, v in top[:10]))
     del params, opt, step, m
     release(torch)
-    return got
+    return {"launches": launches, "rows": rows, "counted": counted,
+            "peak": peak}
 
 
 def run_train(dev) -> dict:
@@ -2571,7 +2665,6 @@ def run_train(dev) -> dict:
     import tempfile
 
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.core import (Request, SpotMarketSimulator,
@@ -2632,21 +2725,8 @@ def run_train(dev) -> dict:
                                                ATTN_TOL["bfloat16"])
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     fwd_ms = cuda_ms(torch, lambda: flash_attention_cuda(qd, kd, vd), 20)
-    bwd_ms = cuda_ms(torch, lambda: ref.flash_bwd_chunked(
-        qd, kd, vd, o_k, lse_k, do, q_chunk=1024, kv_chunk=1024), 10)
-    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-    timed = {"kernel": lambda: torch.autograd.grad(ops.FlashAttention.apply(
-                 q, k, v, True, True, 1024, 1024, False), (q, k, v), do),
-             "sdpa": lambda: torch.autograd.grad(
-                 F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                enable_gqa=True),
-                 (qt, kt, vt), dot)}
-    turns = {"kernel": [], "sdpa": []}
-    for who in ("kernel", "sdpa", "sdpa", "kernel"):
-        turns[who].append(cuda_ms(torch, timed[who], 10))
-    fb_ms, sfb_ms = median(turns["kernel"]), median(turns["sdpa"])
+    bwd_ms, fb_ms, sfb_ms, turns = attn_grads_in_turns(
+        torch, q, k, v, o_k, lse_k, do, 1024)
     b, s, h, kvh, hd = ashape
     fl = attn_flops(b, s, s, h, kvh, hd)
     print(f"phase14 attention at the internlm2-1.8b training shape (B 4, S "
@@ -2658,7 +2738,7 @@ def run_train(dev) -> dict:
           f"backward {sfb_ms:.4f} ms (turns {turns['sdpa']}, "
           f"{3 * fl / sfb_ms / 1e9:.1f} TFLOP/s); ours / SDPA "
           f"{fb_ms / sfb_ms:.3f}")
-    del q, k, v, do, o_k, lse_k, qd, kd, vd, qt, kt, vt, dot, timed
+    del q, k, v, do, o_k, lse_k, qd, kd, vd
     release(torch)
 
     def scan_args(b, s, di, n, dtype):
@@ -2729,7 +2809,7 @@ def run_train(dev) -> dict:
             ("falcon-mamba-7b", 8, 2, 3, False)):
         train_launches.update(train_full(dev, "phase14", arch,
                                          (range(layers), 0, 1), 50, n_steps,
-                                         rows, trace))
+                                         rows, trace)["launches"])
     print(f"phase14c took {time.perf_counter() - t0:.1f} s")
 
     # -- 14d: ElasticSpotTrainer on the card -------------------------------
@@ -4117,8 +4197,8 @@ def run_families(dev) -> dict:
 
 
 #: phase 18: the other families trained at full width — (arch, cut of the
-#: full-width run, cut of the float32 hold, its parameters, of the hold's,
-#: batch rows); cuts as in :data:`FAMILIES`.  16 B a parameter (float32
+#: full-width run (phase 23c, at S 4,096), cut of the float32 hold (18a),
+#: its parameters, of the hold's); cuts as in :data:`FAMILIES`.  16 B a parameter (float32
 #: weights, gradients and two AdamW moments) decides each depth: qwen3-moe
 #: 4 of 48 layers, jamba one Mamba + MLP and the attention + MLP layer (one
 #: of its MoE layers is 9.66 B parameters, 155 GB to train), kimi its dense
@@ -4126,20 +4206,20 @@ def run_families(dev) -> dict:
 #: whole.
 TRAIN_FAMILIES = (
     ("qwen3-moe-30b-a3b", (range(4), 0, 1), FIRST_TWO, 3_114_813_440,
-     1_868_572_672, 4),
+     1_868_572_672),
     ("jamba-1.5-large-398b", ((2, 4), 0, 2), ((2, 4), 0, 2), 2_853_068_800,
-     2_853_068_800, 2),
+     2_853_068_800),
     ("kimi-k2-1t-a32b", (range(1), 0, 1), (range(1), 0, 1), 2_860_798_976,
-     2_860_798_976, 4),
-    ("stablelm-3b", None, FIRST_TWO, 2_795_443_200, 416_179_200, 4),
+     2_860_798_976),
+    ("stablelm-3b", None, FIRST_TWO, 2_795_443_200, 416_179_200),
     ("qwen2.5-14b", (range(6), 0, 1), FIRST_TWO, 3_208_752_128,
-     2_107_677_696, 4),
-    ("internvl2-1b", None, FIRST_TWO, 493_803_392, 165_730_944, 4),
-    ("musicgen-large", None, FIRST_TWO, 3_255_177_216, 167_792_640, 4),
+     2_107_677_696),
+    ("internvl2-1b", None, FIRST_TWO, 493_803_392, 165_730_944),
+    ("musicgen-large", None, FIRST_TWO, 3_255_177_216, 167_792_640),
 )
-#: steps of each phase-18 run and of every hold (phases 14 and 18); the
-#: holds' batch rows and schedule; text tokens a row (after internvl2's
-#: 256 vision embeddings)
+#: steps of phase 14's falcon-mamba run and of every hold (phases 14 and
+#: 18); the holds' batch rows and schedule; text tokens a row (after
+#: internvl2's 256 vision embeddings)
 TRAIN_STEPS, HOLD_ROWS, TRAIN_SEQ = 3, 2, 1024
 HOLD_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
 #: the families the launcher trains (their smoke configs, 6 steps)
@@ -4151,10 +4231,10 @@ def run_train_families(dev) -> dict:
     ``make_train_step`` / ``init_opt_state`` / ``make_batch``
     (:data:`TRAIN_FAMILIES`): (a) a float32 cut of each at full width held
     to the plain versions (:func:`hold_train`; qwen3-moe's also without
-    remat: the recompute routes as the forward did); (b) each at full
-    width (:func:`train_full`), with a traced qwen3-moe step; (c)
-    ``launch.train.main`` on :data:`LAUNCH_ARCHS`' smoke configs.  Returns
-    the launches of (b) and (c)."""
+    remat: the recompute routes as the forward did); (c)
+    ``launch.train.main`` on :data:`LAUNCH_ARCHS`' smoke configs.  Their
+    full-width runs (b) are phase 23c's, at S 4,096.  Returns the launches
+    of (c)."""
     import shutil
     import tempfile
 
@@ -4169,23 +4249,12 @@ def run_train_families(dev) -> dict:
     launches = collections.Counter()
 
     # -- 18a: a float32 cut of each at full width, kernels vs plain -------
-    for seed, (arch, _, hold, _, n_hold, _) in enumerate(TRAIN_FAMILIES):
+    for seed, (arch, _, hold, _, n_hold) in enumerate(TRAIN_FAMILIES):
         n = count_params(cut_layers(get_config(arch), hold))
         check(n == n_hold, f"phase18 {arch} hold: {n} parameters")
         hold_train(dev, "phase18", arch, hold, 180 + seed, seed,
                    remat_none=arch == "qwen3-moe-30b-a3b")
     print(f"phase18a took {time.perf_counter() - t_phase:.1f} s")
-
-    # -- 18b: full width ---------------------------------------------------
-    t0 = time.perf_counter()
-    for seed, (arch, cut, _, n_params, _, rows) in enumerate(
-            TRAIN_FAMILIES):
-        n = count_params(cut_layers(get_config(arch), cut))
-        check(n == n_params, f"phase18 {arch}: {n} parameters")
-        launches.update(train_full(dev, "phase18", arch, cut, 190 + seed,
-                                   TRAIN_STEPS, rows,
-                                   trace=arch == "qwen3-moe-30b-a3b"))
-    print(f"phase18b took {time.perf_counter() - t0:.1f} s")
 
     # -- 18c: the launcher on the other families ---------------------------
     t0 = time.perf_counter()
@@ -5373,6 +5442,33 @@ def worst_share(bands) -> float:
     return max(e / max(m, 1e-30) for e, m, _ in bands)
 
 
+def attn_bands(q, k, v, o, lse, tag):
+    """A causal bf16 ``flash_attention`` launch's ``(o, lse)`` held to
+    ``ref.flash_fwd_chunked`` (blocks of :data:`LONG_ATTN_CHUNK`) on its
+    own q, k, v: o band by band (:func:`band_errors`), each band of
+    :data:`LONG_ATTN_CHUNK` query rows to ``ATTN_TOL["bfloat16"]`` times
+    its own largest |o| (late rows average thousands of values and are far
+    smaller than the first rows), lse to the bar, and no row without a
+    key.  Returns ``(bands, largest o err, lse err, worst band share)``."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    o_p, lse_p = ref.flash_fwd_chunked(q, k, v, causal=True,
+                                       q_chunk=LONG_ATTN_CHUNK,
+                                       kv_chunk=LONG_ATTN_CHUNK)
+    bar = ATTN_TOL["bfloat16"]
+    check(bool(torch.isfinite(lse).all()) and bool(torch.isfinite(
+        lse_p).all()), f"{tag} flash_attention: a row without a key")
+    bands = band_errors(o, o_p, LONG_ATTN_CHUNK)
+    e_o, e_l = max(e for e, _, _ in bands), max_diff(lse, lse_p)
+    share = worst_share(bands)
+    check(share <= bar and e_l <= bar,
+          f"{tag} flash_attention at S {q.shape[1]}: o err / band's max |o| "
+          f"{share} (bar {bar}; bands {bands}), lse err {e_l} (bar {bar})")
+    return bands, e_o, e_l, share
+
+
 def scan_plain_in_segments(args, y, h, chunk, segment):
     """The kernel's ``y`` and ``h_final`` against
     ``ref.selective_scan_chunked`` over the same inputs, run ``segment``
@@ -5406,6 +5502,56 @@ def scan_plain_in_segments(args, y, h, chunk, segment):
     return segs, float((h - hp).abs().max()), float(hp.abs().max()), ms
 
 
+def hold_scan(xs, out, chunk, segment, tag) -> dict:
+    """A bf16 ``mamba_scan`` launch (inputs ``xs``: x, dt, A, B, C, D;
+    outputs ``out``: y, h_final) held to ``ref.selective_scan_chunked``
+    (chunks of ``chunk``) run ``segment`` positions at a time
+    (:func:`scan_plain_in_segments`): each segment's y to
+    :data:`LONG_SCAN_BF16_TOL` of its own largest |y|, h_final to it of the
+    largest |h|; then its first :data:`LONG_SCAN_CHANNELS` channels in
+    float32 to ``SCAN_TOL["float32"]``.  The kernel is timed in turns
+    around the plain run.  Returns the readings."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    from repro_torch.roofline import scan_bound
+
+    check(xs[0].dtype == torch.bfloat16, f"{tag}: scan inputs {xs[0].dtype}")
+    y, hf = out
+    b, s, di = xs[0].shape
+    n = xs[2].shape[1]
+
+    def kernel():
+        return selective_scan_cuda(*xs)
+
+    turns = [cuda_ms(torch, kernel, 2)]
+    segs, dh, hm, plain_ms = scan_plain_in_segments(xs, y, hf, chunk,
+                                                    segment)
+    turns.append(cuda_ms(torch, kernel, 2))
+    bar = LONG_SCAN_BF16_TOL
+    s_y, s_h = worst_share(segs), dh / max(hm, 1e-30)
+    check(s_y <= bar and s_h <= bar,
+          f"{tag} mamba_scan at S {s}: y err / segment's max |y| "
+          f"{s_y} (bar {bar}; segments {segs}), h_final err / max |h| "
+          f"{s_h} (bar {bar})")
+    c = slice(0, LONG_SCAN_CHANNELS)
+    fx = (xs[0][..., c].float().contiguous(),
+          xs[1][..., c].float().contiguous(), xs[2][c].contiguous(),
+          xs[3].float(), xs[4].float(), xs[5][c].contiguous())
+    fy, fh = selective_scan_cuda(*fx)
+    fsegs, fdh, fhm, _ = scan_plain_in_segments(fx, fy, fh, chunk, segment)
+    f_y, f_h = worst_share(fsegs), fdh / max(fhm, 1e-30)
+    check(max(f_y, f_h) <= SCAN_TOL["float32"],
+          f"{tag} mamba_scan float32 at S {s}: y err {f_y} of the "
+          f"segment's largest |y|, h_final err {f_h} of the largest |h|")
+    sb_ms, sb_by = scan_bound(b, s, di, n, elem=2)
+    return dict(shape=f"B {b}, S {s}, di {di}, N {n}, bf16", b=b, s=s,
+                di=di, n=n, segs=segs, s_y=s_y,
+                dy=max(e for e, _, _ in segs), dh=dh, hm=hm, s_h=s_h,
+                f_y=f_y, f_h=f_h, ms=median(turns), turns=turns,
+                plain_ms=plain_ms, bound_ms=sb_ms, bound_by=sb_by)
+
+
 def run_long(dev) -> dict:
     """Phase 22 on ``dev``: the reference's long input shapes through the
     port's entry points at full width (22a prefill_32k and 22b decode_32k
@@ -5413,18 +5559,15 @@ def run_long(dev) -> dict:
     jamba-1.5-large's ``layout[:5]``) and qwen2.5-32b served at full depth
     (22e); returns the kernels' launches on those runs and their readings
     at the new shapes."""
-    import dataclasses
-
     import torch
 
     from repro_torch import roofline
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.mamba_scan import selective_scan_cuda
     from repro_torch.launch.serve import _prompts, all_finite, serve
     from repro_torch.models import count_params, init_params, transformer
-    from repro_torch.roofline import attn_bound, attn_flops, scan_bound
+    from repro_torch.roofline import attn_bound, attn_flops
     from repro_torch.serving import decode_fn, prefill_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5570,24 +5713,10 @@ def run_long(dev) -> dict:
     check(tuple(q.shape) == (B, S, h, hd) and q.dtype == torch.bfloat16,
           f"phase22a: captured q {tuple(q.shape)} {q.dtype}")
     o, lse = flash_attention_cuda(q, k, v, causal=True)
-    o_p, lse_p = ref.flash_fwd_chunked(q, k, v, causal=True,
-                                       q_chunk=LONG_ATTN_CHUNK,
-                                       kv_chunk=LONG_ATTN_CHUNK)
-    sync()
+    bands, e_o, e_l, share = attn_bands(q, k, v, o, lse, "phase22a")
     bar = ATTN_TOL["bfloat16"]
-    check(bool(torch.isfinite(lse).all()) and bool(torch.isfinite(
-        lse_p).all()), "phase22a flash_attention: a row without a key")
-    # o band by band, each band of query rows to the bar times its own
-    # largest |o_p|: late rows average thousands of values and are far
-    # smaller than the first rows
-    bands = band_errors(o, o_p, LONG_ATTN_CHUNK)
-    e_o, e_l = max(e for e, _, _ in bands), max_diff(lse, lse_p)
-    share = worst_share(bands)
     late = bands[-1]
-    check(share <= bar and e_l <= bar,
-          f"phase22a flash_attention at S {S}: o err / band's max |o| "
-          f"{share} (bar {bar}; bands {bands}), lse err {e_l} (bar {bar})")
-    del o, lse, o_p, lse_p
+    del o, lse
     a_ms, al_ms, ap_ms, turns = attn_in_turns(torch, q, k, v)
     ab_ms, ab_by = attn_bound(B, S, S, h, kvh, hd, elem=2)
     tflop = attn_flops(B, S, S, h, kvh, hd) / 1e12
@@ -5696,47 +5825,10 @@ def run_long(dev) -> dict:
     scan = {}
 
     def scan_hold(args, kw, out):
-        """Layer 0's launch: its y and h_final against the plain version
-        at S 524,288 (bf16), then 1,024 channels in float32; the kernel
-        timed in turns around the plain run."""
-        check(kw.get("h0") is None and args[0].dtype == torch.bfloat16,
-              "phase22c: layer 0's scan inputs")
-        xs = args[:6]
-        y, hf = out
-        b, s, di = xs[0].shape
-        n = xs[2].shape[1]
-
-        def kernel():
-            return selective_scan_cuda(*xs)
-
-        turns = [cuda_ms(torch, kernel, 2)]
-        segs, dh, hm, plain_ms = scan_plain_in_segments(
-            xs, y, hf, cfg.mamba_chunk, LONG_SCAN_SEGMENT)
-        turns.append(cuda_ms(torch, kernel, 2))
-        bar = LONG_SCAN_BF16_TOL
-        s_y, s_h = worst_share(segs), dh / max(hm, 1e-30)
-        check(s_y <= bar and s_h <= bar,
-              f"phase22c mamba_scan at S {s}: y err / segment's max |y| "
-              f"{s_y} (bar {bar}; segments {segs}), h_final err / max |h| "
-              f"{s_h} (bar {bar})")
-        c = slice(0, LONG_SCAN_CHANNELS)
-        fx = (xs[0][..., c].float().contiguous(),
-              xs[1][..., c].float().contiguous(), xs[2][c].contiguous(),
-              xs[3].float(), xs[4].float(), xs[5][c].contiguous())
-        fy, fh = selective_scan_cuda(*fx)
-        fsegs, fdh, fhm, _ = scan_plain_in_segments(
-            fx, fy, fh, cfg.mamba_chunk, LONG_SCAN_SEGMENT)
-        f_y, f_h = worst_share(fsegs), fdh / max(fhm, 1e-30)
-        check(max(f_y, f_h) <= SCAN_TOL["float32"],
-              f"phase22c mamba_scan float32 at S {s}: y err {f_y} of the "
-              f"segment's largest |y|, h_final err {f_h} of the largest |h|")
-        sb_ms, sb_by = scan_bound(b, s, di, n, elem=2)
-        scan.update(shape=f"B {b}, S {s}, di {di}, N {n}, bf16", b=b, s=s,
-                    di=di, n=n, segs=segs, s_y=s_y, dy=max(e for e, _, _ in
-                                                          segs),
-                    dh=dh, hm=hm, s_h=s_h, f_y=f_y, f_h=f_h,
-                    ms=median(turns), turns=turns, plain_ms=plain_ms,
-                    bound_ms=sb_ms, bound_by=sb_by)
+        """Layer 0's launch held and timed (:func:`hold_scan`)."""
+        check(kw.get("h0") is None, "phase22c: layer 0's scan inputs")
+        scan.update(hold_scan(args[:6], out, cfg.mamba_chunk,
+                              LONG_SCAN_SEGMENT, "phase22c"))
 
     torch.cuda.reset_peak_memory_stats(dev)
     reset()
@@ -5906,6 +5998,176 @@ def run_long(dev) -> dict:
           f"(flash_attention {n_flash_32k} at S {LONG_PROMPT}, {launches_e} "
           f"in 22e); took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, **readings}
+
+
+#: phase 23: the reference's train_4k shape (``SHAPES["train_4k"]``,
+#: ``configs/base.py:152-157``: S 4,096 and a global batch of 256, one row
+#: a device on the dry-run's 16x16 mesh) at full width; each run's batch is
+#: the largest of these whose first step, counted on ``meta``, leaves
+#: :data:`LONG_FREE` bytes of the card free
+TRAIN_4K_ROWS = (4, 2, 1)
+#: 23b's float32 holds: batch rows and steps
+TRAIN_4K_HOLD = (1, 2)
+#: steps of 23a's run, and of each of 23c's (3 cut to 2 to keep the whole
+#: script within its time)
+TRAIN_4K_STEPS, TRAIN_4K_RUN_STEPS = 3, 2
+#: 23c's falcon-mamba scan hold runs the plain scan this many positions at
+#: a time, each held to its own largest |y|
+TRAIN_4K_SEGMENT = 1024
+
+
+def run_train_4k(dev) -> dict:
+    """Phase 23 on ``dev``: the reference's train_4k shape through
+    ``make_train_step`` / ``init_opt_state`` / ``make_batch`` at full width
+    (:func:`train_full`): (a) internlm2-1.8b at all 24 layers, layer 0's
+    first forward launch held band by band and timed against SDPA (the
+    recompute backward too), the count's peak held to the allocator's and
+    a traced step; (b) float32 ``layout[:2]`` cuts of internlm2-1.8b,
+    falcon-mamba-7b and internvl2-1b held to the plain versions
+    (:func:`hold_train`); (c) falcon-mamba-7b at 8 layers, layer 0's first
+    scan launch held and timed, and :data:`TRAIN_FAMILIES`' cuts.  Returns
+    the launches of (a) and (c) and the kernels' readings."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import count_params
+    from repro_torch.roofline import attn_bound, attn_flops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    card = card_line()
+    seq = SHAPES["train_4k"].seq_len
+    launches = collections.Counter()
+    attn, scan = {}, {}
+
+    # -- 23a: internlm2-1.8b at full depth ---------------------------------
+    t0 = time.perf_counter()
+    cfg = get_config("internlm2-1.8b")
+
+    def attn_hold(args, kw, out):
+        """Layer 0's first forward launch: o against the plain version, the
+        kernel timed against SDPA and the recompute backward against
+        SDPA's forward + backward."""
+        q, k, v = (t.detach() for t in args[:3])
+        o, lse = (t.detach() for t in out)
+        check(kw.get("causal", True) and q.dtype == torch.bfloat16
+              and q.shape[1] == seq, f"phase23a: layer 0's launch "
+              f"{tuple(q.shape)} {q.dtype}")
+        bands, e_o, e_l, share = attn_bands(q, k, v, o, lse, "phase23a")
+        a_ms, al_ms, ap_ms, turns = attn_in_turns(torch, q, k, v)
+        do = torch.randn(o.shape, dtype=o.dtype, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(23))
+        bwd_ms, fb_ms, sfb_ms, g_turns = attn_grads_in_turns(
+            torch, q, k, v, o, lse, do, cfg.attn_chunk_q, reps=3)
+        b, s, h, hd = q.shape
+        attn.update(b=b, s=s, h=h, kv=k.shape[2], hd=hd, bands=bands,
+                    e_o=e_o, e_l=e_l, share=share, ms=a_ms, sdpa_ms=al_ms,
+                    plain_ms=ap_ms, turns=turns, bwd_ms=bwd_ms, fb_ms=fb_ms,
+                    sfb_ms=sfb_ms, g_turns=g_turns)
+
+    run = train_full(dev, "phase23a", "internlm2-1.8b", None, 230,
+                     TRAIN_4K_STEPS, TRAIN_4K_ROWS, trace=True, seq=seq,
+                     first=("flash_attention", attn_hold),
+                     peak_bar=True)
+    launches.update(run["launches"])
+    a = attn
+    B, S, h, kvh, hd = a["b"], a["s"], a["h"], a["kv"], a["hd"]
+    ab_ms, ab_by = attn_bound(B, S, S, h, kvh, hd, elem=2)
+    fl = attn_flops(B, S, S, h, kvh, hd)
+    bar = ATTN_TOL["bfloat16"]
+    first, late = a["bands"][0], a["bands"][-1]
+    print(f"phase23a flash_attention at the train_4k shape (B {B}, S {S}, H "
+          f"{h}, KV {kvh}, hd {hd}, bf16, causal; layer 0's first forward "
+          f"launch of the first step; {card}): against flash_fwd_chunked "
+          f"(blocks of {LONG_ATTN_CHUNK}) in {len(a['bands'])} bands of "
+          f"{LONG_ATTN_CHUNK} query rows, each held to {bar} of its own "
+          f"largest |o|: worst band err / max {a['share']:.3e} (largest o "
+          f"err {a['e_o']:.3e}); first band max |o| {first[1]:.4f} mean "
+          f"{first[2]:.4f}, last band max |o| {late[1]:.4f} mean "
+          f"{late[2]:.4f} err {late[0]:.3e}; lse err {a['e_l']:.3e} (bar "
+          f"{bar}); kernel {a['ms']:.4f} ms (turns {a['turns']['kernel']}) "
+          f"{fl / a['ms'] / 1e9:.1f} TFLOP/s {ab_ms / a['ms']:.2%} of bound;"
+          f" scaled_dot_product_attention {a['sdpa_ms']:.4f} ms (turns "
+          f"{a['turns']['sdpa']}); kernel / SDPA "
+          f"{a['ms'] / a['sdpa_ms']:.3f}; plain {a['plain_ms']:.4f} ms; "
+          f"bound {ab_ms:.6f} ms ({ab_by}); recompute backward "
+          f"(flash_bwd_chunked, blocks of {cfg.attn_chunk_q}) "
+          f"{a['bwd_ms']:.4f} ms; forward + backward {a['fb_ms']:.4f} ms "
+          f"(turns {a['g_turns']['kernel']}, {3 * fl / a['fb_ms'] / 1e9:.1f}"
+          f" TFLOP/s of 3 x the forward's products); SDPA forward + "
+          f"backward {a['sfb_ms']:.4f} ms (turns {a['g_turns']['sdpa']}, "
+          f"{3 * fl / a['sfb_ms'] / 1e9:.1f} TFLOP/s); ours / SDPA "
+          f"{a['fb_ms'] / a['sfb_ms']:.3f}")
+    print(f"phase23a took {time.perf_counter() - t0:.1f} s")
+
+    # -- 23b: float32 cuts, kernels vs plain -------------------------------
+    t0 = time.perf_counter()
+    for i, arch in enumerate(("internlm2-1.8b", "falcon-mamba-7b",
+                              "internvl2-1b")):
+        hold_train(dev, "phase23b", arch, FIRST_TWO, 231 + i, i, seq=seq,
+                   rows=TRAIN_4K_HOLD[0], n_steps=TRAIN_4K_HOLD[1])
+    print(f"phase23b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 23c: falcon-mamba-7b and the other families -----------------------
+    t0 = time.perf_counter()
+    chunk = get_config("falcon-mamba-7b").mamba_chunk
+
+    def scan_hold(args, kw, out):
+        """Layer 0's first scan launch held and timed (:func:`hold_scan`)."""
+        check(kw.get("h0") is None, "phase23c: layer 0's scan inputs")
+        scan.update(hold_scan([t.detach() for t in args[:6]],
+                              [t.detach() for t in out], chunk,
+                              TRAIN_4K_SEGMENT, "phase23c"))
+
+    cuts = []
+    runs = (("falcon-mamba-7b", (range(8), 0, 1), 1_375_178_752),) + tuple(
+        (arch, cut, n) for arch, cut, _, n, _ in TRAIN_FAMILIES)
+    for i, (arch, cut, n_params) in enumerate(runs):
+        n = count_params(cut_layers(get_config(arch), cut))
+        check(n == n_params, f"phase23c {arch}: {n} parameters")
+        run = train_full(dev, "phase23c", arch, cut, 233 + i,
+                         TRAIN_4K_RUN_STEPS, TRAIN_4K_ROWS,
+                         trace=arch == "qwen3-moe-30b-a3b", seq=seq,
+                         first=("mamba_scan", scan_hold)
+                         if arch == "falcon-mamba-7b" else None)
+        launches.update(run["launches"])
+        cuts.append(f"{arch} {cut_label(cut)} B {run['rows']} (counted "
+                    f"{run['counted']} B, peak {run['peak']} B)")
+    s = scan
+    segs = s["segs"]
+    print(f"phase23c mamba_scan at the train_4k shape ({s['shape']}; "
+          f"falcon-mamba-7b's layer 0, first forward launch of the first "
+          f"step; {card}): against selective_scan_chunked (chunks of "
+          f"{chunk}, {TRAIN_4K_SEGMENT} positions at a time), each segment's "
+          f"y held to {LONG_SCAN_BF16_TOL} of its own largest |y|: worst "
+          f"segment err / max {s['s_y']:.3e} (largest y err {s['dy']:.3e}; "
+          f"first segment max |y| {segs[0][1]:.4f}, last {segs[-1][1]:.4f}),"
+          f" h_final err {s['dh']:.3e} ({s['s_h']:.3e} of the largest |h|); "
+          f"float32 on {LONG_SCAN_CHANNELS} channels: y {s['f_y']:.3e}, "
+          f"h_final {s['f_h']:.3e} (bar {SCAN_TOL['float32']}); kernel "
+          f"{s['ms']:.4f} ms (turns {s['turns']}) "
+          f"{s['bound_ms'] / s['ms']:.2%} of bound; plain "
+          f"{s['plain_ms']:.4f} ms; library none; bound "
+          f"{s['bound_ms']:.6f} ms ({s['bound_by']})")
+    print(f"phase23c batches from the count: {'; '.join(cuts)}; took "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"phase23 launches on the train_4k runs: {dict(launches)}; took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": dict(launches),
+            "flash_attention": {
+                "shape": f"B {B}, S {S}, H {h}, KV {kvh}, hd {hd}, bf16, "
+                         "causal",
+                "launches": launches["flash_attention"],
+                "max_abs_err": max(a["e_o"], a["e_l"]), "ms": a["ms"],
+                "plain_ms": a["plain_ms"], "bound_ms": ab_ms,
+                "bound_by": ab_by, "library_ms": a["sdpa_ms"],
+                "bwd_ms": a["bwd_ms"], "fwd_bwd_ms": a["fb_ms"],
+                "sdpa_fwd_bwd_ms": a["sfb_ms"]},
+            "mamba_scan": {
+                "shape": s["shape"], "launches": launches["mamba_scan"],
+                "max_abs_err": max(s["dy"], s["dh"]), "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "bound_by": s["bound_by"], "library_ms": None}}
 
 
 if __name__ == "__main__":

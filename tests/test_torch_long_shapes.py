@@ -8,10 +8,10 @@ cut small (``attn_chunk_q`` / ``attn_chunk_kv`` 128, ``mamba_chunk`` 64 in
 both packages), so that a few thousand positions span many attention
 blocks and many scan chunks: prefill into caches several times the prompt,
 then greedy decode steps, the decode tokens being the port's argmax fed to
-both packages.  Parameters come from the reference's ``init_params``;
-prompts are drawn with numpy.  The reference's ``init_params``, ``prefill``
-and ``decode_step`` run under ``jax.jit`` (each arch's parameters drawn
-once a module), as it serves.  Both packages take their plain attention and
+both packages.  Parameters come from the port's seeded ``init_params``
+(each arch's drawn once a module), converted to the reference's tree;
+prompts are drawn with numpy.  The reference's ``prefill`` and
+``decode_step`` run under ``jax.jit``, as it serves.  Both packages take their plain attention and
 scan on the CPU.  Tolerance: logits and caches within ``1e-4`` of the
 reference's (float32 compute), greedy tokens equal.
 
@@ -47,9 +47,9 @@ from repro_torch import roofline
 from repro_torch.configs import get_config
 from repro_torch.kernels import ref
 from repro_torch.launch.serve import all_finite
-from repro_torch.models import decode_step, prefill, transformer
+from repro_torch.models import decode_step, init_params, prefill, transformer
 from repro_torch.models.convert import (caches_to_reference,
-                                        params_from_reference)
+                                        params_to_reference)
 
 CPU = torch.device("cpu")
 TOL = 1e-4
@@ -88,13 +88,11 @@ ref_decode_step = jax.jit(ref_models.decode_step, static_argnums=1)
 
 @functools.cache
 def _params(arch, seed=28):
-    """Both packages' configs and the reference's parameters drawn from
-    ``seed``, with the port's converted from them (once a module)."""
+    """Both packages' configs and the port's parameters drawn from
+    ``seed``, with the reference's converted from them (once a module)."""
     cfg_r, cfg_p = _configs(arch)
-    params_j = jax.jit(ref_models.init_params, static_argnums=0)(
-        cfg_r, jax.random.PRNGKey(seed))
-    return cfg_r, cfg_p, params_j, params_from_reference(
-        cfg_p, jax.tree.map(np.asarray, params_j), CPU)
+    params_t = init_params(cfg_p, torch.Generator().manual_seed(seed), CPU)
+    return cfg_r, cfg_p, params_to_reference(cfg_p, params_t), params_t
 
 
 def _assert_caches(cfg_p, got, want):

@@ -214,11 +214,13 @@ RAGGED = [
     (1, 37, 7, 1, 8, True, 16, 12, False),    # GQA 7, unequal chunks
     (1, 20, 4, 1, 8, False, 8, 12, False),    # non-causal
     (2, 40, 4, 2, 16, True, 16, 16, True),    # the triangular schedule
+    (2, 72, 4, 2, 16, True, 16, 16, False),   # train_4k's VLM row: 4 + 8
 ]
 
 
 @pytest.mark.parametrize("case", RAGGED,
-                         ids=["causal", "gqa7", "noncausal", "causal_skip"])
+                         ids=["causal", "gqa7", "noncausal", "causal_skip",
+                              "train_4k_vlm"])
 def test_flash_attention_gradients_at_a_ragged_length(case):
     """``o`` and ``dq, dk, dv`` of ``Σ o·w`` through the port's
     ``FlashAttention`` (``flash_fwd_chunked`` / ``flash_bwd_chunked`` with
