@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from .. import resolve_device, sharding
+from .. import resolve_device, sharding, spans
 from ..configs.base import LayerSpec, ModelConfig
 from . import layers, mamba, moe
 from .layers import ParamDef
@@ -149,16 +149,19 @@ class Block(nn.Module):
                 make_cache=False):
         """``(x, new_cache, aux)``: ``aux`` is the MoE load-balance loss of
         this layer, or None for a layer without MoE."""
-        h = self.mixer_norm(x)
-        mix, new_cache = self.mixer(h, cfg, cache=cache, pos=pos,
-                                    make_cache=make_cache)
-        x = x + mix
+        with spans.span("mixer"):
+            h = self.mixer_norm(x)
+            mix, new_cache = self.mixer(h, cfg, cache=cache, pos=pos,
+                                        make_cache=make_cache)
+            x = x + mix
         aux = None
         if self.ffn_kind == "mlp":
-            x = x + self.ffn(self.ffn_norm(x))
+            with spans.span("ffn"):
+                x = x + self.ffn(self.ffn_norm(x))
         elif self.ffn_kind == "moe":
-            y, aux = self.ffn(self.ffn_norm(x), cfg)
-            x = x + y
+            with spans.span("ffn"):
+                y, aux = self.ffn(self.ffn_norm(x), cfg)
+                x = x + y
         return x, new_cache, aux
 
 
@@ -454,7 +457,7 @@ def forward(params: Transformer, cfg: ModelConfig,
     make_cache = mode == "prefill"
     n_moe = max(1, sum(1 for spec in cfg.layout if spec.ffn == "moe"))
     remat = mode == "train" and torch.is_grad_enabled()
-    with torch.set_grad_enabled(remat):
+    with spans.span("forward"), torch.set_grad_enabled(remat):
         x = _embed_inputs(params, cfg, batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches: Optional[Caches] = (
@@ -473,20 +476,22 @@ def forward(params: Transformer, cfg: ModelConfig,
             if new_caches is not None:
                 new_caches.append(nc)
 
-        x = params.final_norm(x)
-        dt = x.dtype
-        if cfg.tie_embeddings:
-            logits = x @ params.embed.tok.to(dt).T
-        else:
-            logits = x @ params.unembed.w.to(dt)
-        if cfg.input_mode == "audio_codes":
-            b, s, _ = logits.shape
-            logits = sharding.reshape(logits, b, s, cfg.n_codebooks,
-                                      cfg.vocab_size)
-        logits = sharding.constrain(
-            logits, sharding.logits_spec() if cfg.input_mode != "audio_codes"
-            else sharding.P(sharding.batch_axes(), None, None,
-                            sharding.rules_or_default().model))
+        with spans.span("head"):
+            x = params.final_norm(x)
+            dt = x.dtype
+            if cfg.tie_embeddings:
+                logits = x @ params.embed.tok.to(dt).T
+            else:
+                logits = x @ params.unembed.w.to(dt)
+            if cfg.input_mode == "audio_codes":
+                b, s, _ = logits.shape
+                logits = sharding.reshape(logits, b, s, cfg.n_codebooks,
+                                          cfg.vocab_size)
+            logits = sharding.constrain(
+                logits, sharding.logits_spec()
+                if cfg.input_mode != "audio_codes"
+                else sharding.P(sharding.batch_axes(), None, None,
+                                sharding.rules_or_default().model))
         if make_cache and max_len is not None:
             new_caches = _pad_caches(new_caches, cfg, max_len)
     return logits, aux_total / n_moe, new_caches
@@ -503,23 +508,24 @@ def loss_fn(params: Transformer, cfg: ModelConfig,
     not masked (``< 0``), plus the z-loss and ``router_aux_weight`` × the
     MoE aux, as the reference's ``loss_fn``."""
     logits, aux, _ = forward(params, cfg, batch, mode="train")
-    logits = logits.float()
-    targets = batch["targets"].long()
-    if cfg.input_mode == "audio_codes":
-        targets = torch.movedim(targets, 1, 2)         # (B,K,S) -> (B,S,K)
-    if cfg.input_mode == "vlm":
-        pad = -torch.ones(targets.shape[:1] + (cfg.vision_prefix,),
-                          dtype=targets.dtype, device=targets.device)
-        targets = torch.cat([pad, targets], dim=1)
-    mask = (targets >= 0).float()
-    safe_t = torch.clamp(targets, min=0)
-    lse = torch.logsumexp(logits, dim=-1)
-    true_logit = _pick(logits, safe_t)
-    ce = (lse - true_logit) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = ce.sum() / denom
-    zl = z_loss_weight * ((lse * mask) ** 2).sum() / denom
-    total = loss + zl + cfg.router_aux_weight * aux
+    with spans.span("loss"):
+        logits = logits.float()
+        targets = batch["targets"].long()
+        if cfg.input_mode == "audio_codes":
+            targets = torch.movedim(targets, 1, 2)     # (B,K,S) -> (B,S,K)
+        if cfg.input_mode == "vlm":
+            pad = -torch.ones(targets.shape[:1] + (cfg.vision_prefix,),
+                              dtype=targets.dtype, device=targets.device)
+            targets = torch.cat([pad, targets], dim=1)
+        mask = (targets >= 0).float()
+        safe_t = torch.clamp(targets, min=0)
+        lse = torch.logsumexp(logits, dim=-1)
+        true_logit = _pick(logits, safe_t)
+        ce = (lse - true_logit) * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = ce.sum() / denom
+        zl = z_loss_weight * ((lse * mask) ** 2).sum() / denom
+        total = loss + zl + cfg.router_aux_weight * aux
     metrics = {"loss": loss, "z_loss": zl, "moe_aux": aux, "tokens": denom}
     return total, metrics
 
@@ -561,14 +567,16 @@ def _pick(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def prefill(params: Transformer, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], max_len: int):
     """Causal forward that also returns decode caches sized to max_len."""
-    logits, _, caches = forward(params, cfg, batch, mode="prefill",
-                                max_len=max_len, pos=0)
+    with spans.span("prefill"):
+        logits, _, caches = forward(params, cfg, batch, mode="prefill",
+                                    max_len=max_len, pos=0)
     return logits, caches
 
 
 def decode_step(params: Transformer, cfg: ModelConfig, caches: Caches,
                 tokens: Dict[str, torch.Tensor], pos: int):
     """One new token against the caches.  pos = current cache length."""
-    logits, _, caches = forward(params, cfg, tokens, mode="decode",
-                                caches=caches, pos=pos)
+    with spans.span("decode_step"):
+        logits, _, caches = forward(params, cfg, tokens, mode="decode",
+                                    caches=caches, pos=pos)
     return logits, caches

@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from .. import optim, sharding
+from .. import optim, sharding, spans
 from ..configs.base import ModelConfig
 from ..models import transformer
 
@@ -47,20 +47,23 @@ def train_step_fn(params: transformer.Transformer, opt_state, batch, *,
     """``(params, opt_state, metrics)`` after one step on ``batch``:
     ``loss``, ``z_loss``, ``moe_aux``, ``tokens``, ``lr``, ``grad_norm``
     and ``total_loss``, as 0-d tensors on the parameters' device."""
-    named = optim.leaves(params)
-    for p in named.values():
-        p.requires_grad_(True)
-    dev = next(iter(named.values())).device
-    with torch.enable_grad():
-        total, metrics = transformer.loss_fn(params, cfg,
-                                             _on_device(batch, dev))
-        grads = dict(zip(named, torch.autograd.grad(
-            total, list(named.values()))))
-    params, opt_state, opt_metrics = optim.adamw_update(
-        params, grads, opt_state, opt_cfg,
-        ranks=transformer.reference_ranks(cfg))
-    metrics = {**{k: v.detach() for k, v in metrics.items()}, **opt_metrics,
-               "total_loss": total.detach()}
+    with spans.span("train_step"):
+        named = optim.leaves(params)
+        for p in named.values():
+            p.requires_grad_(True)
+        dev = next(iter(named.values())).device
+        with torch.enable_grad():
+            total, metrics = transformer.loss_fn(params, cfg,
+                                                 _on_device(batch, dev))
+            with spans.span("backward"):
+                grads = dict(zip(named, torch.autograd.grad(
+                    total, list(named.values()))))
+        with spans.span("optimizer"):
+            params, opt_state, opt_metrics = optim.adamw_update(
+                params, grads, opt_state, opt_cfg,
+                ranks=transformer.reference_ranks(cfg))
+        metrics = {**{k: v.detach() for k, v in metrics.items()},
+                   **opt_metrics, "total_loss": total.detach()}
     return params, opt_state, metrics
 
 
