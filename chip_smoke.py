@@ -102,10 +102,10 @@ system's real sizes and holds every result to the host:
    training shapes — ``FlashAttention`` (the kernel's ``(o, lse)``, then
    ``flash_bwd_chunked``) at internlm2-1.8b's (B 4, S 1024, H 16, KV 8,
    hd 128, bf16; bar 3e-2) and a float32 case (bar 2e-5), and
-   ``SelectiveScan`` (the kernel's ``y``, then the reverse chunk
-   recompute) at falcon-mamba-7b's (B 2, S 1024, di 8192, N 16, float32;
-   six gradients within 1e-4 of the largest), timing the kernel forwards,
-   both recompute backwards and SDPA forward + backward in turns with
+   ``SelectiveScan`` (the kernel's ``y``, then the backward kernel) at
+   falcon-mamba-7b's (B 2, S 1024, di 8192, N 16, float32; six gradients
+   within 1e-4 of the largest), timing the kernel forwards, both plain
+   recompute backwards and SDPA forward + backward in turns with
    ours; a two-layer float32 cut of each config at full width, three
    ``make_train_step`` steps through the kernels against the same steps
    through the plain versions (losses and grad norms within 1e-4,
@@ -322,8 +322,14 @@ system's real sizes and holds every result to the host:
    8 layers (layer 0's first scan launch held to
    ``selective_scan_chunked`` 1,024 positions at a time and timed) and
    every cut of :data:`TRAIN_FAMILIES`, 2 steps each (a traced qwen3-moe
-   step): losses finite, launches exact, each peak within the card beside
-   its count ("phase23" lines).
+   step): losses finite, launches exact (the scan's backward kernel once a
+   Mamba layer a step), each peak within the card beside its count; (d)
+   the scan's backward kernel held to ``ops.scan_backward`` (the seven
+   gradients, each to 1e-4 of its largest magnitude in float32 and 1e-2 in
+   bf16, every launch repeated with equal bits) on small shapes with and
+   without h0, dy and dh, ragged lengths and N < 16, and at falcon-mamba's
+   train_4k launch (B 4, S 4,096, di 8,192, N 16, bf16), timed in turns
+   around the plain version ("phase23" lines).
 
 Every phase that fails raises, and the script exits non-zero.  Kernel
 times are device times (``cuda_ms``: CUDA events around back-to-back
@@ -340,7 +346,8 @@ phase 20's in ``launches_paper`` and its readings at the widest launches
 in ``paper``, phase 21's in ``launches_drivers``, phase 22's in
 ``launches_long`` and its readings at the long shapes in ``long``, phase
 23's in ``launches_train_4k`` and its readings at the train_4k shapes in
-``train_4k``); the last line
+``train_4k``; ``mamba_scan_bwd``'s entry takes the training phases'
+launches as the others do, 23d's holds left out); the last line
 is ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
@@ -829,6 +836,20 @@ def run(dev) -> dict:
     drivers = run_drivers(dev, cost["dryrun"])
     long = run_long(dev)
     train_4k = run_train_4k(dev)
+    bwd = train_4k["mamba_scan_bwd"]
+    kernels.append({
+        "name": "mamba_scan_bwd", "route": "cuda",
+        "variant": "a checkpoint every 16 steps, then each chunk's states "
+                   "recomputed into registers and walked back, 4 lanes a "
+                   "channel; the sums across CTAs and rows in a second "
+                   "kernel",
+        "source": "src/repro_torch/csrc/mamba_scan.cu",
+        "replaces": "none (the reference differentiates its chunked scan "
+                    "with jax.grad; the plain version is ops.scan_backward)",
+        "launches": 0, "max_rel_err": bwd["max_rel_err"], "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": None})
+    trained = ("flash_attention", "mamba_scan", "mamba_scan_bwd", "cover_dp")
     for k in kernels:
         k["launches_drivers"] = drivers.get(k["name"], 0)
         k["launches"] += k["launches_drivers"]
@@ -837,7 +858,7 @@ def run(dev) -> dict:
         k["launches_sim"] = sim.get(k["name"], 0)
         k["launches_policies"] = policies.get(k["name"], 0)
         k["launches"] += k["launches_sim"] + k["launches_policies"]
-        if k["name"] in ("flash_attention", "mamba_scan", "cover_dp"):
+        if k["name"] in trained:
             k["launches_train"] = train["launches"].get(k["name"], 0)
             k["launches_train_families"] = train_families["launches"].get(
                 k["name"], 0)
@@ -862,6 +883,7 @@ def run(dev) -> dict:
             k["launches_long"] = long["launches"][k["name"]]
             k["launches"] += k["launches_long"]
             k["long"] = long[k["name"]]
+        if k["name"] in ("flash_attention", "mamba_scan", "mamba_scan_bwd"):
             k["launches_train_4k"] = train_4k["launches"][k["name"]]
             k["launches"] += k["launches_train_4k"]
             k["train_4k"] = train_4k[k["name"]]
@@ -2388,13 +2410,16 @@ def train_flops(cfg, tokens: int, batch: int, seq: int) -> float:
 
 def kernel_counts() -> dict:
     """Launches, since :func:`reset_counts`, of the kernels a train step
-    and the elastic trainer reach."""
+    and the elastic trainer reach (the scan's backward as
+    ``mamba_scan_bwd``)."""
     from repro_torch.core import cover_dp as cdp
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    from repro_torch.kernels.mamba_scan import (selective_scan_bwd_cuda,
+                                                selective_scan_cuda)
 
     return {"flash_attention": flash_attention_cuda.launches,
             "mamba_scan": selective_scan_cuda.launches,
+            "mamba_scan_bwd": selective_scan_bwd_cuda.launches,
             "cover_dp": cdp.cover_dp.launches}
 
 
@@ -2402,24 +2427,27 @@ def reset_counts(to=None) -> None:
     """Each count of :func:`kernel_counts` set to 0, or to ``to``'s."""
     from repro_torch.core import cover_dp as cdp
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    from repro_torch.kernels.mamba_scan import (selective_scan_bwd_cuda,
+                                                selective_scan_cuda)
 
     to = to or {}
     flash_attention_cuda.launches = to.get("flash_attention", 0)
     selective_scan_cuda.launches = to.get("mamba_scan", 0)
+    selective_scan_bwd_cuda.launches = to.get("mamba_scan_bwd", 0)
     cdp.cover_dp.launches = to.get("cover_dp", 0)
 
 
 def step_launches(cfg, n_steps: int) -> dict:
     """Launches of ``n_steps`` train steps of ``cfg``: each attention and
-    each Mamba layer once a pass, ``remat_passes`` passes a step, and no
-    other kernel."""
+    each Mamba layer once a pass, ``remat_passes`` passes a step, the
+    scan's backward once a Mamba layer a step, and no other kernel."""
     from repro_torch.models.transformer import remat_passes
 
     attn = sum(spec.mixer == "attn" for spec in cfg.layout)
     rp = n_steps * remat_passes(cfg)
     return {"flash_attention": attn * rp,
-            "mamba_scan": (cfg.n_layers - attn) * rp, "cover_dp": 0}
+            "mamba_scan": (cfg.n_layers - attn) * rp,
+            "mamba_scan_bwd": (cfg.n_layers - attn) * n_steps, "cover_dp": 0}
 
 
 def positions(cfg, seq=None) -> int:
@@ -2672,7 +2700,8 @@ def run_train(dev) -> dict:
     from repro_torch.core import backend as bmod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.mamba_scan import selective_scan_cuda
+    from repro_torch.kernels.mamba_scan import (selective_scan_bwd_cuda,
+                                                selective_scan_cuda)
     from repro_torch.launch import train as launch_train
     from repro_torch.models import count_params
     from repro_torch.models.transformer import remat_passes
@@ -2756,7 +2785,11 @@ def run_train(dev) -> dict:
     args = scan_args(*sshape, torch.float32)
     dy = on_card(rng.normal(size=sshape[:3]), torch.float32)
     y, _ = ops.SelectiveScan.apply(*args, None, True, 256)
+    n_bwd = selective_scan_bwd_cuda.launches
     g_k = torch.autograd.grad(y, args, dy)
+    n_bwd = selective_scan_bwd_cuda.launches - n_bwd
+    check(n_bwd == 1, f"phase14 scan gradients: {n_bwd} backward kernel "
+          f"launches, expected 1")
     y_p, _ = ref.selective_scan_chunked(*args, chunk=256)
     g_p = torch.autograd.grad(y_p, args, dy)
     names = ("x", "dt", "A", "B", "C", "D")
@@ -2768,8 +2801,8 @@ def run_train(dev) -> dict:
           f"phase14 scan gradients: errors {errs} > {SCAN_TOL['float32']}")
     print(f"phase14 scan gradients at the falcon-mamba-7b training shape (B "
           f"2, S 1024, di 8192, N 16, float32): y from the kernel and the "
-          f"six gradients through the chunk-by-chunk reverse recompute, "
-          f"against autograd through selective_scan_chunked: errors "
+          f"six gradients through the backward kernel, against autograd "
+          f"through selective_scan_chunked: errors "
           f"(max |diff| / largest |plain|) " + ", ".join(
               f"{n} {e:.3e}" for n, e in errs.items())
           + f" (bar {SCAN_TOL['float32']})")
@@ -6016,6 +6049,137 @@ TRAIN_4K_STEPS, TRAIN_4K_RUN_STEPS = 3, 2
 TRAIN_4K_SEGMENT = 1024
 
 
+#: 23d's holds of the scan backward beside the train_4k launch: (label, B,
+#: S, di, N, dtype, h0, dy, dh) with float32 with and without an initial
+#: state, dh given with dy, without it and alone, ragged lengths (S 1,000 and
+#: 250: chunks of 16 and a last one of 8 and 10), ragged channel tiles and
+#: N < 16
+SCAN_BWD_CASES = (
+    ("dy", 2, 64, 32, 8, "float32", False, True, False),
+    ("h0 dy dh", 2, 64, 32, 8, "float32", True, True, True),
+    ("h0 dh, dy None", 2, 64, 32, 8, "float32", True, False, True),
+    ("dy dh", 2, 64, 32, 8, "float32", False, True, True),
+    ("ragged S, h0 dy dh", 2, 1000, 64, 16, "float32", True, True, True),
+    ("N 5, ragged di", 2, 100, 66, 5, "float32", True, True, False),
+    ("N 13, ragged di", 3, 48, 130, 13, "float32", True, True, True),
+    ("N 1", 2, 32, 40, 1, "float32", False, True, False),
+    ("N 7, ragged S, bf16", 2, 250, 96, 7, "bfloat16", True, True, True),
+)
+#: 23d's train_4k launch: falcon-mamba-7b's (B, S, d_inner, N), bf16
+SCAN_BWD_TRAIN_4K = (4, 4096, 8192, 16)
+
+
+def run_scan_bwd(dev) -> dict:
+    """Phase 23d on ``dev``: the scan's backward kernel
+    (``selective_scan_bwd_cuda``) held to the plain ``ops.scan_backward``
+    on the card, each of the seven gradients to ``SCAN_TOL["float32"]``
+    (float32) or :data:`LONG_SCAN_BF16_TOL` (bf16) of its own largest
+    magnitude, and each launch repeated with equal bits: the cases of
+    :data:`SCAN_BWD_CASES`, then falcon-mamba-7b's train_4k launch (bf16,
+    inputs as its layers feed the scan at init, dy drawn), timed in turns
+    around the plain version.  Returns the readings."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba_scan import selective_scan_bwd_cuda
+    from repro_torch.roofline import scan_bwd_bound
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(234)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def on_card(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def draw(b, s, di, n, dtype, h0, dy, dh, model_like=False):
+        if model_like:      # as falcon-mamba's layers feed it at init
+            xr = rng.normal(size=(b, s, di)).astype(np.float32)
+            x = xr / (1 + np.exp(-xr))
+            dt = np.log1p(np.exp(-4.6 + 0.5 * rng.normal(
+                size=(b, s, di)).astype(np.float32)))
+            A = -np.broadcast_to(np.arange(1, n + 1), (di, n)).copy()
+            D = np.ones(di)
+        else:
+            x = rng.normal(size=(b, s, di))
+            dt = rng.uniform(0.001, 0.1, size=(b, s, di))
+            A = -rng.uniform(0.5, 2.0, size=(di, n))
+            D = rng.normal(size=(di,))
+        return [on_card(x, dtype), on_card(dt, dtype),
+                on_card(A, torch.float32),
+                on_card(rng.normal(size=(b, s, n)), dtype),
+                on_card(rng.normal(size=(b, s, n)), dtype),
+                on_card(D, torch.float32),
+                on_card(rng.normal(size=(b, di, n)), torch.float32)
+                if h0 else None,
+                on_card(rng.normal(size=(b, s, di)).astype(np.float32),
+                        dtype) if dy else None,
+                on_card(rng.normal(size=(b, di, n)), torch.float32)
+                if dh else None]
+
+    def hold(label, args, bar):
+        s = args[0].shape[1]
+        chunk = max(c for c in range(1, 257) if s % c == 0)
+        got = selective_scan_bwd_cuda(*args)
+        again = selective_scan_bwd_cuda(*args)
+        want = ops.scan_backward(*args[:7], args[7], args[8], chunk)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w, g2 in zip(names, got, want, again):
+            check((g is None) == (w is None) and (w is None or (
+                g.dtype == w.dtype and g.shape == w.shape)),
+                f"phase23d {label}: {name} {g if g is None else g.dtype} "
+                f"against {w if w is None else w.dtype}")
+            if w is not None:
+                check(torch.equal(g, g2), f"phase23d {label}: {name} differs "
+                      f"between two launches on the same inputs")
+                errs[name] = rel_largest(g, w)
+        check(max(errs.values()) <= bar, f"phase23d scan backward {label}: "
+              f"errors {errs} (max |diff| / largest |plain|) > {bar}")
+        return errs
+
+    worst = 0.0
+    for label, b, s, di, n, dname, h0, dy, dh in SCAN_BWD_CASES:
+        bar = SCAN_TOL["float32"] if dname == "float32" else \
+            LONG_SCAN_BF16_TOL
+        errs = hold(f"{label} (B {b}, S {s}, di {di}, N {n}, {dname})",
+                    draw(b, s, di, n, dtypes[dname], h0, dy, dh), bar)
+        worst = max(worst, max(errs.values()) / bar)
+    b, s, di, n = SCAN_BWD_TRAIN_4K
+    args = draw(b, s, di, n, torch.bfloat16, False, True, False,
+                model_like=True)
+    errs = hold("train_4k", args, LONG_SCAN_BF16_TOL)
+
+    def kernel():
+        return selective_scan_bwd_cuda(*args)
+
+    def plain():
+        return ops.scan_backward(*args[:7], args[7], None, 256)
+
+    turns = [cuda_ms(torch, kernel, 10)]
+    plain_ms = cuda_ms(torch, plain, 1)
+    turns.append(cuda_ms(torch, kernel, 10))
+    k_ms = median(turns)
+    b_ms, b_by = scan_bwd_bound(b, s, di, n, elem=2)
+    shape = f"B {b}, S {s}, di {di}, N {n}, bf16"
+    print(f"phase23d scan backward ({card_line()}): {len(SCAN_BWD_CASES)} "
+          f"cases (float32 to {SCAN_TOL['float32']}, bf16 to "
+          f"{LONG_SCAN_BF16_TOL} of each gradient's largest |plain|; worst "
+          f"err / bar {worst:.3e}), every launch twice with equal bits; "
+          f"falcon-mamba-7b's train_4k launch ({shape}; dy drawn, no h0 or "
+          f"dh) against ops.scan_backward (chunks of 256): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bar {LONG_SCAN_BF16_TOL}); kernel {k_ms:.4f} ms (turns "
+          f"{[round(t, 4) for t in turns]}) {b_ms / k_ms:.2%} of bound; "
+          f"plain {plain_ms:.4f} ms ({plain_ms / k_ms:.1f}x); library none; "
+          f"bound {b_ms:.6f} ms ({b_by}); took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del args
+    release(torch)
+    return dict(shape=shape, err=max(errs.values()), ms=k_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def run_train_4k(dev) -> dict:
     """Phase 23 on ``dev``: the reference's train_4k shape through
     ``make_train_step`` / ``init_opt_state`` / ``make_batch`` at full width
@@ -6123,7 +6287,8 @@ def run_train_4k(dev) -> dict:
     runs = (("falcon-mamba-7b", (range(8), 0, 1), 1_375_178_752),) + tuple(
         (arch, cut, n) for arch, cut, _, n, _ in TRAIN_FAMILIES)
     for i, (arch, cut, n_params) in enumerate(runs):
-        n = count_params(cut_layers(get_config(arch), cut))
+        cfg = cut_layers(get_config(arch), cut)
+        n = count_params(cfg)
         check(n == n_params, f"phase23c {arch}: {n} parameters")
         run = train_full(dev, "phase23c", arch, cut, 233 + i,
                          TRAIN_4K_RUN_STEPS, TRAIN_4K_ROWS,
@@ -6149,8 +6314,10 @@ def run_train_4k(dev) -> dict:
           f"{s['bound_ms'] / s['ms']:.2%} of bound; plain "
           f"{s['plain_ms']:.4f} ms; library none; bound "
           f"{s['bound_ms']:.6f} ms ({s['bound_by']})")
-    print(f"phase23c batches from the count: {'; '.join(cuts)}; took "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"phase23c batches from the count: {'; '.join(cuts)}; scan "
+          f"backward launches {launches['mamba_scan_bwd']} (Mamba layers x "
+          f"steps); took {time.perf_counter() - t0:.1f} s")
+    bwd = run_scan_bwd(dev)
     print(f"phase23 launches on the train_4k runs: {dict(launches)}; took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": dict(launches),
@@ -6167,7 +6334,12 @@ def run_train_4k(dev) -> dict:
                 "shape": s["shape"], "launches": launches["mamba_scan"],
                 "max_abs_err": max(s["dy"], s["dh"]), "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                "bound_by": s["bound_by"], "library_ms": None}}
+                "bound_by": s["bound_by"], "library_ms": None},
+            "mamba_scan_bwd": {
+                "shape": bwd["shape"], "launches": launches["mamba_scan_bwd"],
+                "max_rel_err": bwd["err"], "ms": bwd["ms"],
+                "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+                "bound_by": bwd["bound_by"], "library_ms": None}}
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ per source, all started together) and linked into one shared library in
 a hash of every source and header plus the flags, so an edit rebuilds it.
 It has a plain C interface and is loaded with ``ctypes``; each kernel's
 wrapper (``cover_dp``, ``fused_rows``, ``score``, ``flash_attention_cuda``,
-``selective_scan_cuda``) takes its launch function from :func:`library`.
+``selective_scan_cuda``, ``selective_scan_bwd_cuda``) takes its launch
+function from :func:`library`.
 
 ``--fmad=false`` is a flag of every source: the fused row solver and the
 score take products whose rounding must match the host's.  The two
@@ -40,6 +41,7 @@ LAUNCH_ARGTYPES = {
     "score_launch": [_P] * 6 + [_I, _L, _P],
     "flash_attention_launch": [_P] * 5 + [_I] * 10 + [_P],
     "mamba_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
+    "mamba_scan_bwd_launch": [_P] * 17 + [_L] + [_I] * 5 + [_P],
 }
 
 

@@ -49,6 +49,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;  // lanes of a CTA
@@ -324,6 +326,406 @@ int launch(const void* x, const void* dt, const float* A, const void* bmat,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// scan_bwd_kernel and scan_bwd_sums: the scan's seven gradients.
+//
+// Replaces no TPU kernel: the reference differentiates its chunked scan with
+// jax.grad, and the port's plain version (ops.scan_backward) re-runs the
+// chunked associative scan under autograd chunk by chunk, ~850 ms a call at
+// falcon-mamba-7b's train_4k shape, all of it unfused float32 elementwise
+// traffic; no PyTorch call computes it. It was added because that plain
+// backward was 92% of the falcon-mamba-7b train step. For the forward above
+// and output gradients dy (B,S,di) in the inputs' dtype and dh (B,di,N)
+// float32 (either may be null, read as zero), with g_t = dL/dh_t = C_t dy_t +
+// exp(dt_{t+1} A) g_{t+1} (dh entering at t = S-1), z_t = exp(dt_t A) h_{t-1}
+// g_t and du_t = sum_n B_t g_t:
+//     dx = dt du + D dy                 ddt = x du + sum_n A z
+//     dA = sum_{b,t} dt z               dD = sum_{b,t} x dy
+//     dB_t = sum_d u_t g_t              dC_t = sum_d h_t dy_t
+//     dh0 = exp(dt_0 A) g_0
+// dx, ddt, dB, dC in the inputs' dtype; dA, dD, dh0 in float32.
+//
+// Design. The forward's decomposition: G lanes own one (batch row, channel),
+// each lane its states in registers; a CTA covers kCh consecutive channels of
+// one batch row. Two walks over the sequence:
+//  1. forward from h0, stepping as scan_kernel does, writing only the state
+//     before every kBwdK-th step to a checkpoint in device memory;
+//  2. in reverse, chunk by chunk of kBwdK steps: the chunk's x, dt, dy tiles
+//     and B, C rows staged in shared memory, its checkpoint reloaded, its
+//     states recomputed into registers exactly as the forward makes them
+//     (ex2.approx of dt * (A log2 e), u = dt x rounded to the inputs' dtype,
+//     the same unfused products), so the kernel differentiates the states the
+//     forward produced; then the walk back, g carried in registers.
+// du and sum_n A z of each step are reduced over the channel's G lanes G steps
+// at a time (a reduce-scatter, as y in the forward), and the lane holding a
+// step writes its dx and ddt. dB_t and dC_t, sums over channels, are reduced
+// over the warp's channels by a reduce-scatter (7 shuffles for 8 values) and
+// over the CTA's warps in shared memory in warp order, into per-CTA partials;
+// dA and dD are each lane's sums over t, into per-row partials. A second,
+// small kernel (scan_bwd_sums) sums the partials in CTA and row order. No
+// atomics: the same inputs give the same bits on every launch. (Summing a
+// chunk's partials in the CTA that finishes it last, in one kernel, took
+// half the time at the train_4k shape: that CTA falls behind, finishes every
+// later chunk last too, and sums all of them in series.)
+//
+// What bounds it on an H100: operations, as the forward. The gradient needs
+// one exp per (b, t, d, n): 0.5135 ms at falcon-mamba-7b's train_4k launch
+// (B 4, S 4096, di 8192, N 16), against ~0.40 ms of bytes. This kernel takes
+// three (walk 1, the recompute, the walk back) and about three times the
+// forward's float32 work, and moves the checkpoints and partials besides
+// (0.8 GB at that shape). kBwdK = 16 keeps a chunk's 17 states in registers
+// at two CTAs an SM; it was chosen by timing (PERF.md).
+
+constexpr int kBwdK = 16;                   // steps between checkpoints
+constexpr int kWarps = kThreads / 32;
+constexpr int kRed = 2 * kMaxState;         // dB_t and dC_t values of a step
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Sum of v[sel] over the lanes that differ from this one in the bits of
+// `sel` (each bit `stride` lanes apart), left in this lane: log2(V) levels,
+// V - 1 shuffles for V values.
+template <int V>
+__device__ __forceinline__ float reduce_scatter(float (&v)[V], int sel,
+                                                int stride) {
+#pragma unroll
+  for (int half = V / 2; half >= 1; half >>= 1) {
+    const bool upper = (sel & half) != 0;
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      const float send = upper ? v[k] : v[k + half];
+      const float own = upper ? v[k + half] : v[k];
+      v[k] = own + __shfl_xor_sync(kFull, send, half * stride);
+    }
+  }
+  return v[0];
+}
+
+// Device memory the backward needs besides its outputs, carved from one
+// buffer: the checkpoints, the per-CTA dB / dC partials and the per-row
+// dA / dD partials (byte offsets). kernels/mamba_scan.py's
+// scan_bwd_work_bytes gives the same total, for the allocation and the
+// cost model's memory account; the launch refuses a smaller buffer.
+struct BwdWork {
+  long long ckpt, part, part_ad, total;
+};
+
+BwdWork bwd_work(int b, int s, int di, int n) {
+  const long long nx = (di + kThreads / G - 1) / (kThreads / G);
+  const long long nc = (s + kBwdK - 1) / kBwdK;
+  auto up = [](long long bytes) { return (bytes + 255) / 256 * 256; };
+  BwdWork w;
+  w.ckpt = 0;
+  w.part = up(4LL * b * nc * di * n);
+  w.part_ad = w.part + up(4LL * b * nc * nx * kBwdK * kRed);
+  w.total = w.part_ad + up(4LL * b * di * (n + 1));
+  return w;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                const float* __restrict__ A, const T* __restrict__ bmat,
+                const T* __restrict__ cmat, const float* __restrict__ D,
+                const float* __restrict__ h0, const T* __restrict__ dy,
+                const float* __restrict__ dh, T* __restrict__ dx,
+                T* __restrict__ ddt, float* __restrict__ dh0,
+                float* __restrict__ ckpt, float* __restrict__ part,
+                float* __restrict__ part_ad, int s, int di, int n) {
+  constexpr int K = kBwdK;
+  constexpr int kCh = kThreads / G;         // channels of a CTA
+  constexpr int kPer = kMaxState / G;       // states a lane holds at most
+  constexpr int kGroups = 32 / G;           // channels of a warp
+  static_assert(2 * kPer == kGroups, "one dB or dC value a lane of a warp");
+  static_assert(K % G == 0, "a chunk is whole groups of G steps");
+  __shared__ __align__(16) T sx[K][kCh];
+  __shared__ __align__(16) T sdt[K][kCh];
+  __shared__ __align__(16) T sdy[K][kCh];
+  __shared__ __align__(16) T sdx[K][kCh];
+  __shared__ __align__(16) T sddt[K][kCh];
+  __shared__ __align__(16) float fb[K * kMaxState];
+  __shared__ __align__(16) float fc[K * kMaxState];
+  __shared__ float sred[kWarps][K][kRed];
+
+  const int b = blockIdx.y, nb = gridDim.y, nx = gridDim.x;
+  const int tid = threadIdx.x;
+  const int ch = tid / G, g = tid % G;
+  const int warp = tid / 32, sel = ch % kGroups;
+  const int d0 = blockIdx.x * kCh;
+  const int d = d0 + ch;
+  const bool live = d < di;
+  const int per = (n + G - 1) / G;          // states of each lane
+  const long long row = static_cast<long long>(b) * s;
+  const long long state = (static_cast<long long>(b) * di + d) * n;
+  const int n_chunks = (s + K - 1) / K;
+
+  // lane g holds the states [g * per, g * per + per); a state past N, or of
+  // a channel past di, is off: its A, B and C read as zero, so it stays zero
+  // and adds nothing
+  float a[kPer];
+  bool on[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int j = g * per + p;
+    on[p] = live && p < per && j < n;
+    a[p] = on[p] ? A[static_cast<long long>(d) * n + j] * kLog2e : 0.f;
+  }
+  const float dskip = live ? D[d] : 0.f;
+
+  // chunk c's tiles: x, dt (and, walking back, dy) of the CTA's channels, B
+  // (and C) rows in float32, zero past the sequence, di and N
+  auto load = [&](int c, bool back) {
+    const int t0 = c * K, len = min(K, s - t0);
+    for (int i = tid; i < K * kCh; i += kThreads) {
+      const int tt = i / kCh, cc = i % kCh;
+      const bool in = tt < len && d0 + cc < di;
+      const long long at = (row + t0 + tt) * di + d0 + cc;
+      sx[tt][cc] = in ? x[at] : from_f32<T>(0.f);
+      sdt[tt][cc] = in ? dt[at] : from_f32<T>(0.f);
+      if (back)
+        sdy[tt][cc] = in && dy != nullptr ? dy[at] : from_f32<T>(0.f);
+    }
+    for (int i = tid; i < K * kMaxState; i += kThreads) {
+      const int tt = i / kMaxState, j = i % kMaxState;
+      const bool in = tt < len && j < n;
+      const long long at = (row + t0 + tt) * n + j;
+      fb[i] = in ? to_f32(bmat[at]) : 0.f;
+      if (back) fc[i] = in ? to_f32(cmat[at]) : 0.f;
+    }
+  };
+  // this lane's values of step tt's B or C row
+  auto row_of = [&](const float* f, int tt, float (&v)[kPer]) {
+    if (per == kPer) {
+      load_row<kPer>(&f[tt * kMaxState + g * kPer], v);
+    } else {
+#pragma unroll
+      for (int p = 0; p < kPer; ++p)
+        v[p] = p < per ? f[tt * kMaxState + g * per + p] : 0.f;
+    }
+  };
+  // step tt of the forward: hout = exp(dt A) hin + u B, as scan_kernel
+  auto advance = [&](int tt, const float (&hin)[kPer], float (&hout)[kPer]) {
+    const float xt = to_f32(sx[tt][ch]);
+    const float dtt = to_f32(sdt[tt][ch]);
+    const float u = to_f32(from_f32<T>(dtt * xt));
+    float bv[kPer];
+    row_of(fb, tt, bv);
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const float decay = ex2_approx(dtt * a[p]);
+      hout[p] = decay * hin[p] + u * bv[p];
+    }
+  };
+  auto checkpoint = [&](int c) {
+    return ckpt + ((static_cast<long long>(b) * n_chunks + c) * di + d) * n;
+  };
+
+  // -- walk 1: forward, the state before each chunk checkpointed -----------
+  float h[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p)
+    h[p] = on[p] && h0 != nullptr ? h0[state + g * per + p] : 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p)
+      if (on[p]) checkpoint(c)[g * per + p] = h[p];
+    if (c + 1 == n_chunks) break;
+    __syncthreads();                 // chunk c - 1's readers are done
+    load(c, false);
+    __syncthreads();
+#pragma unroll
+    for (int tt = 0; tt < K; ++tt) advance(tt, h, h);
+  }
+
+  // -- walk 2: in reverse, chunk by chunk ----------------------------------
+  float carry[kPer], sum_a[kPer];            // exp(dt_{t+1} A) g_{t+1}; dA
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    carry[p] = on[p] && dh != nullptr ? dh[state + g * per + p] : 0.f;
+    sum_a[p] = 0.f;
+  }
+  float sum_d = 0.f;                         // dD over this lane's steps
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * K, len = min(K, s - t0);
+    __syncthreads();                 // chunk c + 1's readers are done
+    load(c, true);
+    __syncthreads();
+    // the chunk's recompute and walk back; a whole chunk (every chunk but
+    // a ragged last one) without the per-step guards, so that the unrolled
+    // steps schedule as one block
+    auto back = [&](auto whole) {
+      constexpr bool kWhole = decltype(whole)::value;
+      // hs[tt]: the state before step tt of the chunk, hs[tt + 1] after it
+      float hs[K + 1][kPer];
+#pragma unroll
+      for (int p = 0; p < kPer; ++p)
+        hs[0][p] = on[p] ? checkpoint(c)[g * per + p] : 0.f;
+#pragma unroll
+      for (int tt = 0; tt < K; ++tt)
+        if (kWhole || tt < len) advance(tt, hs[tt], hs[tt + 1]);
+#pragma unroll
+      for (int q = K / G - 1; q >= 0; --q) {
+        float du[G], dz[G];                  // this lane's parts, G steps
+#pragma unroll
+        for (int k = G - 1; k >= 0; --k) {
+          const int tt = q * G + k;
+          du[k] = dz[k] = 0.f;
+          if (!kWhole && tt >= len) continue;
+          const float xt = to_f32(sx[tt][ch]);
+          const float dtt = to_f32(sdt[tt][ch]);
+          const float dyt = to_f32(sdy[tt][ch]);
+          const float u = to_f32(from_f32<T>(dtt * xt));
+          float bv[kPer], cv[kPer], red[2 * kPer];
+          row_of(fb, tt, bv);
+          row_of(fc, tt, cv);
+#pragma unroll
+          for (int p = 0; p < kPer; ++p) {
+            const float gp = __fmaf_rn(cv[p], dyt, carry[p]);    // g_t
+            carry[p] = ex2_approx(dtt * a[p]) * gp;
+            const float z = carry[p] * hs[tt][p];
+            du[k] = __fmaf_rn(bv[p], gp, du[k]);
+            dz[k] = __fmaf_rn(a[p], z, dz[k]);
+            sum_a[p] = __fmaf_rn(dtt, z, sum_a[p]);
+            red[p] = u * gp;                                     // dB_t
+            red[kPer + p] = hs[tt + 1][p] * dyt;                 // dC_t
+          }
+          // the warp's channels summed: this lane keeps value `sel`
+          const float v = reduce_scatter<2 * kPer>(red, sel, G);
+          const int p = sel % kPer, j = g * per + p;
+          if (p < per && j < n)
+            sred[warp][tt][(sel / kPer) * kMaxState + j] = v;
+        }
+        // the channel's lanes summed: lane g keeps step q * G + g
+        const float dus = reduce_scatter<G>(du, g, 1);
+        const float dzs = reduce_scatter<G>(dz, g, 1);
+        const int tt = q * G + g;
+        if ((kWhole || tt < len) && live) {
+          const float xt = to_f32(sx[tt][ch]);
+          const float dyt = to_f32(sdy[tt][ch]);
+          sdx[tt][ch] = from_f32<T>(
+              __fmaf_rn(to_f32(sdt[tt][ch]), dus, dskip * dyt));
+          sddt[tt][ch] = from_f32<T>(__fmaf_rn(xt, dus, kLn2 * dzs));
+          sum_d = __fmaf_rn(xt, dyt, sum_d);
+        }
+      }
+    };
+    if (len == K)
+      back(std::true_type{});
+    else
+      back(std::false_type{});
+    __syncthreads();
+    for (int i = tid; i < len * kCh; i += kThreads) {
+      const int tt = i / kCh, cc = i % kCh;
+      if (d0 + cc < di) {
+        const long long at = (row + t0 + tt) * di + d0 + cc;
+        dx[at] = sdx[tt][cc];
+        ddt[at] = sddt[tt][cc];
+      }
+    }
+    // this CTA's dB_t, dC_t: its channels summed, warps in order
+    const long long chunk = static_cast<long long>(b) * n_chunks + c;
+    float* mine = part + (chunk * nx + blockIdx.x) * (K * kRed);
+    for (int i = tid; i < len * kRed; i += kThreads) {
+      const int tt = i / kRed, r = i % kRed;
+      if (r % kMaxState < n) {
+        float acc = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) acc += sred[w][tt][r];
+        mine[i] = acc;
+      }
+    }
+  }
+
+  // -- dh0; this row's dA and dD ----------------------------------------
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    if (on[p]) {
+      dh0[state + g * per + p] = carry[p];
+      part_ad[state + g * per + p] = sum_a[p];
+    }
+  }
+  sum_d += __shfl_xor_sync(kFull, sum_d, 1);
+  sum_d += __shfl_xor_sync(kFull, sum_d, 2);
+  if (live && g == 0)
+    part_ad[static_cast<long long>(nb) * di * n +
+            static_cast<long long>(b) * di + d] = sum_d;
+}
+
+// The sums across CTAs and rows that scan_bwd_kernel leaves as partials, in
+// a fixed order: dB_t, dC_t over the di / kCh channel tiles of a row (a CTA
+// for each (row, chunk)), then dA, dD over the rows (the CTAs after those).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scan_bwd_sums(const float* __restrict__ part,
+              const float* __restrict__ part_ad, T* __restrict__ dB,
+              T* __restrict__ dC, float* __restrict__ dA,
+              float* __restrict__ dD, int nb, int s, int di, int n, int nx) {
+  constexpr int K = kBwdK;
+  const int n_chunks = (s + K - 1) / K;
+  const long long rows = static_cast<long long>(nb) * n_chunks;
+  const int tid = threadIdx.x;
+  if (blockIdx.x < rows) {
+    const long long chunk = blockIdx.x;
+    const int b = static_cast<int>(chunk / n_chunks);
+    const int t0 = static_cast<int>(chunk % n_chunks) * K;
+    const int len = min(K, s - t0);
+    const float* all = part + chunk * nx * (K * kRed);
+    for (int i = tid; i < len * kRed; i += kThreads) {
+      const int tt = i / kRed, r = i % kRed, j = r % kMaxState;
+      if (j >= n) continue;
+      float acc = 0.f;
+      for (int xb = 0; xb < nx; ++xb)
+        acc += all[static_cast<long long>(xb) * (K * kRed) + i];
+      T* out = r < kMaxState ? dB : dC;
+      out[(static_cast<long long>(b) * s + t0 + tt) * n + j] =
+          from_f32<T>(acc);
+    }
+    return;
+  }
+  const long long e = (blockIdx.x - rows) * kThreads + tid;
+  const long long na = static_cast<long long>(di) * n;
+  if (e < na) {
+    float acc = 0.f;
+    for (int bb = 0; bb < nb; ++bb) acc += part_ad[bb * na + e];
+    dA[e] = acc;
+  } else if (e < na + di) {
+    const float* part_d = part_ad + nb * na;
+    float acc = 0.f;
+    for (int bb = 0; bb < nb; ++bb)
+      acc += part_d[static_cast<long long>(bb) * di + (e - na)];
+    dD[e - na] = acc;
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* dt, const float* A,
+               const void* bmat, const void* cmat, const float* D,
+               const float* h0, const void* dy, const float* dh, void* dx,
+               void* ddt, float* dA, void* dB, void* dC, float* dD,
+               float* dh0, char* work, int b, int s, int di, int n,
+               cudaStream_t stream) {
+  const BwdWork w = bwd_work(b, s, di, n);
+  const int nx = (di + kThreads / G - 1) / (kThreads / G);
+  const int nc = (s + kBwdK - 1) / kBwdK;
+  float* part = reinterpret_cast<float*>(work + w.part);
+  float* part_ad = reinterpret_cast<float*>(work + w.part_ad);
+  scan_bwd_kernel<T><<<dim3(nx, b), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dt), A,
+      static_cast<const T*>(bmat), static_cast<const T*>(cmat), D, h0,
+      static_cast<const T*>(dy), dh, static_cast<T*>(dx),
+      static_cast<T*>(ddt), dh0, reinterpret_cast<float*>(work + w.ckpt),
+      part, part_ad, s, di, n);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long na = static_cast<long long>(di) * (n + 1);
+  const long long blocks =
+      static_cast<long long>(b) * nc + (na + kThreads - 1) / kThreads;
+  scan_bwd_sums<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      part, part_ad, static_cast<T*>(dB), static_cast<T*>(dC), dA, dD, b, s,
+      di, n, nx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches the kernel on `stream` for contiguous x, dt (B,S,di), B, C
@@ -347,5 +749,45 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt,
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, dt, A, bmat, cmat, D, h0, y, h_out, b, s,
                                  di, n, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launches the backward on `stream` for the forward's contiguous inputs (as
+// mamba_scan_launch; h0 may be null), dy (B,S,di) in their dtype and dh
+// (B,di,N) float32 (either null for zero), and `work` of at least
+// bwd_work's total bytes (256-byte aligned); writes dx, ddt (B,S,di)
+// and dB, dC (B,S,N) in that dtype, dA (di,N), dD (di,) and dh0 (B,di,N)
+// float32. Returns the CUDA error code (0 on success);
+// cudaErrorInvalidValue for a shape the kernel does not take (N > 16) or too
+// small a `work`.
+extern "C" int mamba_scan_bwd_launch(const void* x, const void* dt,
+                                     const float* A, const void* bmat,
+                                     const void* cmat, const float* D,
+                                     const float* h0, const void* dy,
+                                     const float* dh, void* dx, void* ddt,
+                                     float* dA, void* dB, void* dC, float* dD,
+                                     float* dh0, void* work,
+                                     long long work_bytes, int b, int s,
+                                     int di, int n, int dtype, void* stream) {
+  if (di <= 0) return 0;
+  if (n <= 0 || n > kMaxState || s < 0 || b < 0 || b > 65535 ||
+      work_bytes < bwd_work(b, s, di, n).total ||
+      reinterpret_cast<uintptr_t>(work) % 256 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b == 0) {     // no rows: dA and dD are empty sums
+    cudaError_t err = cudaMemsetAsync(dA, 0, sizeof(float) * di * n, st);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dD, 0, sizeof(float) * di, st);
+    return static_cast<int>(err);
+  }
+  char* w = static_cast<char*>(work);
+  if (dtype == 0)
+    return launch_bwd<float>(x, dt, A, bmat, cmat, D, h0, dy, dh, dx, ddt, dA,
+                             dB, dC, dD, dh0, w, b, s, di, n, st);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, dt, A, bmat, cmat, D, h0, dy, dh, dx,
+                                     ddt, dA, dB, dC, dD, dh0, w, b, s, di, n,
+                                     st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,12 +16,15 @@ counterparts of the reference's ``_diff_flash``:
   also gives the row ``lse``; the backward is
   :func:`ref.flash_bwd_chunked` from ``(q, k, v, o, lse)``;
 * the scan: the forward is the kernel (or ``selective_scan_chunked``); the
-  backward recomputes :func:`ref.selective_scan_chunked` under autograd,
-  chunk by chunk in reverse from the chunks' boundary states, so that one
-  chunk's intermediates are live at a time.
+  backward is the kernel's backward (``selective_scan_bwd_cuda``) after the
+  kernel, and :func:`scan_backward` after the chunked version: it
+  recomputes :func:`ref.selective_scan_chunked` under autograd, chunk by
+  chunk in reverse from the chunks' boundary states, so that one chunk's
+  intermediates are live at a time.
 
-Neither backward is a kernel: in the reference both are plain ``jnp``
-(``flash_bwd_chunked``, and autodiff of the chunked scan).
+In the reference both backwards are plain ``jnp`` (``flash_bwd_chunked``,
+and autodiff of the chunked scan); the attention's stays plain here, the
+scan's is a kernel beyond the port.
 
 On an active mesh (``sharding.mesh_context``) the reference's sharding
 hooks apply: self-attention's q, k, v are first laid out for the mesh's
@@ -48,7 +51,7 @@ from torch.distributed.tensor.experimental import local_map
 from .. import sharding
 from . import ref
 from .flash_attention import flash_attention_cuda
-from .mamba_scan import selective_scan_cuda
+from .mamba_scan import selective_scan_bwd_cuda, selective_scan_cuda
 
 
 def _resolve(impl: str, t: torch.Tensor, what: str) -> str:
@@ -198,14 +201,21 @@ class SelectiveScan(torch.autograd.Function):
                                               chunk=chunk)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, A, Bmat, Cmat, D, h0)
-        ctx.chunk = chunk
+        ctx.kernel, ctx.chunk = kernel, chunk
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
         x, dt, A, Bmat, Cmat, D, h0 = ctx.saved_tensors
-        return (*scan_backward(x, dt, A, Bmat, Cmat, D, h0, dy, dh,
-                               ctx.chunk), None, None)
+        if ctx.kernel:
+            grads = selective_scan_bwd_cuda(
+                x, dt, A, Bmat, Cmat, D, h0,
+                None if dy is None else dy.contiguous(),
+                None if dh is None else dh.contiguous())
+        else:
+            grads = scan_backward(x, dt, A, Bmat, Cmat, D, h0, dy, dh,
+                                  ctx.chunk)
+        return (*grads, None, None)
 
 
 def scan_backward(x, dt, A, Bmat, Cmat, D, h0, dy, dh, chunk: int):

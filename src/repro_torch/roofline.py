@@ -32,10 +32,11 @@ every aten op the step dispatches on one device:
         all-to-all          (N−1)/N · buf
         collective-permute            buf
 
-The two model kernels reach the counter as one op each
-(``repro_torch::flash_attention``, ``repro_torch::selective_scan``) with
-their own cost (:func:`attn_cost`, :func:`scan_cost`), as the reference's
-walker meets a custom call.
+The model kernels reach the counter as one op each
+(``repro_torch::flash_attention``, ``repro_torch::selective_scan`` and the
+scan's backward ``repro_torch::selective_scan_bwd``) with their own cost
+(:func:`attn_cost`, :func:`scan_cost`, :func:`scan_bwd_cost`), as the
+reference's walker meets a custom call.
 
 The same run keeps the step's memory account, the counterpart of XLA's
 ``memory_analysis()``.  Every storage that an op creates on the device
@@ -47,7 +48,10 @@ storages the arguments reach, ``peak_bytes`` the most bytes of the step's
 own storages alive at once (outputs included), ``output_bytes`` the
 storages of the return value that the step created.  Scratch that an op
 takes inside its CUDA implementation (cuBLAS workspace, cub temporaries of
-``sort`` / ``cumsum``) exists only on the card and is not in the count.
+``sort`` / ``cumsum``) exists only on the card and is not in the count,
+save the scan backward's (``mamba_scan.scan_bwd_work_bytes``): a kernel op
+of this package that takes scratch says how much, and the count holds it
+beside the live bytes at the op's launch.
 
 The constants are the H100 SXM data sheet's (dense, no sparsity, at the
 700 W power limit).
@@ -67,6 +71,8 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
 from torch.utils._pytree import tree_leaves
+
+from .kernels.mamba_scan import scan_bwd_work_bytes
 
 #: H100 SXM, dense bf16 tensor-core rate (FLOP/s per device)
 PEAK_FLOPS = 989e12
@@ -132,14 +138,19 @@ def attn_cost(b, sq, skv, h, kv, hd, elem, causal=True, q_offset=0,
             float(attn_bytes(b, sq, skv, h, kv, hd, elem)))
 
 
+def _bound(flops, nbytes):
+    """``(ms, "bytes" | "operations")``: ``nbytes`` over HBM or ``flops``
+    at :data:`PEAK_FLOPS`, whichever is longer."""
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def attn_bound(b, sq, skv, h, kv, hd, elem, causal=True, q_offset=0):
     """``(ms, "bytes" | "operations")``: q, k, v read and o, lse written
     once over HBM; or :func:`attn_flops` over the dense bf16 tensor-core
     rate."""
-    flops, nbytes = attn_cost(b, sq, skv, h, kv, hd, elem, causal, q_offset)
-    t_bytes = nbytes / HBM_BW * 1e3
-    t_ops = flops / PEAK_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(*attn_cost(b, sq, skv, h, kv, hd, elem, causal, q_offset))
 
 
 def scan_cost(b, s, di, n, elem) -> Tuple[float, float]:
@@ -161,10 +172,31 @@ def scan_bound(b, s, di, n, elem):
     """``(ms, "bytes" | "operations")`` of :func:`scan_cost`: the bytes
     over HBM, or the exps over the SFU rate or the float32 ops over the
     float32 rate, whichever is longer."""
-    flops, nbytes = scan_cost(b, s, di, n, elem)
-    t_bytes = nbytes / HBM_BW * 1e3
-    t_ops = flops / PEAK_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(*scan_cost(b, s, di, n, elem))
+
+
+def scan_bwd_cost(b, s, di, n, elem) -> Tuple[float, float]:
+    """``(FLOPs, bytes)`` of one ``selective_scan_bwd`` op, counted as the
+    gradient's own work and never what an implementation recomputes: x,
+    dt, dy, B, C, A, D read and dx, ddt, dB, dC, dA, dD written once (the
+    optional h0, dh and dh0 left out); one exp per (b, t, d, n) on the
+    SFUs; and outside the tensor cores, per (b, t, d, n), 15 float32 ops:
+    dt·A, the carry exp·g_{t+1}, C·dy and its add (g_t), Σ_n B·g (2),
+    z = carry·h_{t-1}, Σ_n A·z (2), dA's dt·z and sum (2), dB's u·g and
+    dC's h·dy with their sums over channels (4); per (b, t, d), 7: dx =
+    dt·du + D·dy (3), ddt = x·du + Σ_n A·z (2), dD's x·dy and sum (2).
+    Given, as :func:`scan_cost`'s, as the dense-bf16 FLOPs that take the
+    same time at :data:`PEAK_FLOPS`."""
+    nbytes = elem * (5 * b * s * di + 4 * b * s * n) + 8 * (di * n + di)
+    t_exp = b * s * di * n / SFU_OPS_PER_S
+    t_flop = (15 * b * s * di * n + 7 * b * s * di) / FP32_FLOPS
+    return max(t_exp, t_flop) * PEAK_FLOPS, float(nbytes)
+
+
+def scan_bwd_bound(b, s, di, n, elem):
+    """``(ms, "bytes" | "operations")`` of :func:`scan_bwd_cost`, as
+    :func:`scan_bound`."""
+    return _bound(*scan_bwd_cost(b, s, di, n, elem))
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +319,17 @@ def _kernel_cost(name: str, args, kwargs) -> Tuple[float, float]:
                          q.element_size(), causal, q_offset, kv_len)
     x, a = args[0], args[2]
     b, s, di = x.shape
-    return scan_cost(b, s, di, a.shape[1], x.element_size())
+    cost = scan_bwd_cost if name == "selective_scan_bwd" else scan_cost
+    return cost(b, s, di, a.shape[1], x.element_size())
+
+
+def _kernel_scratch(name: str, args) -> int:
+    """Bytes of scratch a kernel op of this package takes beside its
+    outputs while it runs."""
+    if name != "selective_scan_bwd":
+        return 0
+    x, a = args[0], args[2]
+    return scan_bwd_work_bytes(*x.shape, a.shape[1])
 
 
 class _CostMode(TorchDispatchMode):
@@ -325,6 +367,10 @@ class _CostMode(TorchDispatchMode):
             if self._now > self.cost.peak_bytes:
                 self.cost.peak_bytes = self._now
 
+    def _held(self, nbytes: int) -> None:
+        """Counts ``nbytes`` alive beside the live storages for a moment."""
+        self.cost.peak_bytes = max(self.cost.peak_bytes, self._now + nbytes)
+
     def _died(self, key: int, _ref) -> None:
         entry = self.live.pop(key, None)
         if entry is not None:
@@ -345,6 +391,7 @@ class _CostMode(TorchDispatchMode):
         c = self.cost
         ns, op = func.namespace, func._opname
         if ns == "repro_torch":
+            self._held(_kernel_scratch(op, args))
             flops, nbytes = _kernel_cost(op, args, kwargs)
             c.flops += flops
             c.bytes += nbytes
@@ -507,4 +554,4 @@ def parse_collectives(cost: StepCost) -> CollectiveStats:
 __all__ = ["CollectiveStats", "HBM_BW", "HBM_BYTES", "LINK_BW", "PEAK_FLOPS",
            "Roofline", "StepCost", "analyze_step", "attn_bound", "attn_cost",
            "attn_flops", "model_flops", "parse_collectives", "roofline_of",
-           "scan_bound", "scan_cost"]
+           "scan_bound", "scan_bwd_bound", "scan_bwd_cost", "scan_cost"]

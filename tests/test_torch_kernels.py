@@ -25,7 +25,8 @@ from repro_torch.core import cuda_lib
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (check_inputs,
                                                  flash_attention_cuda)
-from repro_torch.kernels.mamba_scan import selective_scan_cuda
+from repro_torch.kernels.mamba_scan import (selective_scan_bwd_cuda,
+                                            selective_scan_cuda)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -391,5 +392,102 @@ def test_launch_functions_are_declared():
     for path in sorted((REPO / "src" / "repro_torch" / "csrc").glob("*.cu")):
         for name, params in decl.findall(path.read_text()):
             found[name] = len([p for p in params.split(",") if p.strip()])
-    assert {"flash_attention_launch", "mamba_scan_launch"} <= set(found)
+    assert {"flash_attention_launch", "mamba_scan_launch",
+            "mamba_scan_bwd_launch"} <= set(found)
     assert found == {k: len(v) for k, v in cuda_lib.LAUNCH_ARGTYPES.items()}
+
+
+def test_scan_bwd_work_bytes_mirrors_the_source():
+    """``scan_bwd_work_bytes`` takes the backward kernel's layout from the
+    constants of ``csrc/mamba_scan.cu`` and counts its three parts, each
+    rounded up to 256 bytes: 807,534,592 bytes at falcon-mamba-7b's
+    train_4k launch (B 4, S 4096, di 8192, N 16), worked by hand."""
+    from repro_torch.kernels import mamba_scan
+
+    src = (REPO / "src" / "repro_torch" / "csrc" / "mamba_scan.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert (mamba_scan.BWD_K, mamba_scan.BWD_THREADS, mamba_scan.BWD_LANES,
+            mamba_scan.MAX_STATE) == tuple(int(consts[k]) for k in (
+                "kBwdK", "kThreads", "G", "kMaxState"))
+    ckpt = 4 * 4 * 256 * 8192 * 16          # B x chunks x di x N, float32
+    part = 4 * 4 * 256 * 128 * 16 * 32      # B x chunks x CTAs x K x 2 x 16
+    part_ad = 4 * 4 * 8192 * 17             # B x di x (N + 1)
+    assert mamba_scan.scan_bwd_work_bytes(4, 4096, 8192, 16) == \
+        ckpt + part + part_ad == 807_534_592
+    # a ragged S and di: 2 chunks, 2 CTAs, each part rounded up
+    assert mamba_scan.scan_bwd_work_bytes(1, 17, 65, 3) == \
+        1792 + 8192 + 1280
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("given", ["dy", "dh", "dy dh h0", "dh h0"])
+def test_scan_bwd_fake_gives_the_gradients_shapes(dtype, given):
+    """On ``meta`` tensors ``selective_scan_bwd_cuda`` goes through the op
+    ``repro_torch::selective_scan_bwd``'s fake implementation: the seven
+    gradients' shapes, dx, ddt, dB, dC in the inputs' dtype and dA, dD,
+    dh0 in float32 (dh0 None without h0), with either output gradient
+    missing; nothing is launched or counted."""
+    b, s, di, n = 2, 24, 16, 5
+
+    def blank(*shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    x, bc = blank(b, s, di, dt=dtype), blank(b, s, n, dt=dtype)
+    A, D, state = blank(di, n), blank(di), blank(b, di, n)
+    launches = selective_scan_bwd_cuda.launches
+    got = selective_scan_bwd_cuda(
+        x, x, A, bc, bc, D, state if "h0" in given else None,
+        x if "dy" in given else None, state if "dh" in given else None)
+    want = [(x.shape, dtype), (x.shape, dtype), (A.shape, torch.float32),
+            (bc.shape, dtype), (bc.shape, dtype), (D.shape, torch.float32),
+            (state.shape, torch.float32)]
+    assert len(got) == 7
+    for g, (shape, dt) in zip(got[:6], want):
+        assert g.is_meta and g.shape == shape and g.dtype == dt
+    if "h0" in given:
+        assert got[6].is_meta and got[6].shape == state.shape
+        assert got[6].dtype == torch.float32
+    else:
+        assert got[6] is None
+    assert selective_scan_bwd_cuda.launches == launches
+
+
+def test_scan_bwd_raises_on_what_the_kernel_does_not_take():
+    """The op checks shapes on ``meta`` as on the card (N past 16, an
+    output gradient of another shape), and the wrapper takes no CPU
+    tensor: the plain version there is ``ops.scan_backward``."""
+    def blank(*shape, dt=torch.float32, device="meta"):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    x, A, D = blank(1, 8, 4), blank(4, 17), blank(4)
+    with pytest.raises(ValueError, match="not taken"):
+        selective_scan_bwd_cuda(x, x, A, blank(1, 8, 17), blank(1, 8, 17),
+                                D, None, x, None)
+    A = blank(4, 3)
+    with pytest.raises(ValueError, match="output gradients"):
+        selective_scan_bwd_cuda(x, x, A, blank(1, 8, 3), blank(1, 8, 3), D,
+                                None, blank(1, 9, 4), None)
+    cpu = [blank(*t.shape, device="cpu") for t in
+           (x, x, A, blank(1, 8, 3), blank(1, 8, 3), D)]
+    with pytest.raises(ValueError, match="scan_backward"):
+        selective_scan_bwd_cuda(*cpu, None, cpu[0], None)
+
+
+def test_ops_scan_on_cpu_differentiates_through_the_plain_backward():
+    """On CPU tensors the scan's backward is ``scan_backward`` (the plain
+    version), whose gradients are autograd's through the chunked scan;
+    the backward kernel is neither launched nor counted."""
+    x, dt, A, Bm, Cm, D, h0 = _scan_inputs(np.random.default_rng(11), 2, 32,
+                                           8, 4, "float32", with_h0=True)
+    ins = [t[1].clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D, h0)]
+    rng = np.random.default_rng(12)
+    dy = torch.tensor(rng.normal(size=(2, 32, 8)), dtype=torch.float32)
+    dh = torch.tensor(rng.normal(size=(2, 8, 4)), dtype=torch.float32)
+    launches = selective_scan_bwd_cuda.launches
+    y, h = ops.selective_scan(*ins[:6], h0=ins[6], chunk=8)
+    got = torch.autograd.grad((y, h), ins, (dy, dh))
+    y_p, h_p = ref.selective_scan_chunked(*ins[:6], h0=ins[6], chunk=32)
+    want = torch.autograd.grad((y_p, h_p), ins, (dy, dh))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-5)
+    assert selective_scan_bwd_cuda.launches == launches

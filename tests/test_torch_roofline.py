@@ -214,6 +214,53 @@ def test_scan_op_counts_its_own_cost():
     assert round(ms, 6) == 0.128384
 
 
+def test_scan_bwd_op_counts_its_own_cost():
+    """A forward and backward through ``ops.selective_scan(...,
+    impl="cuda")`` at falcon-mamba-7b's train_4k launch (B 4, S 4096, di
+    8192, N 16, bf16) on ``meta`` counts one ``selective_scan`` at
+    ``scan_cost`` and one ``selective_scan_bwd`` at ``scan_bwd_cost``,
+    whose roofline is ``scan_bwd_bound``'s (0.513536 ms, the exps)."""
+    def fwd_bwd(*args):
+        ins = [t.requires_grad_() for t in args]
+        y, _ = ops.selective_scan(*ins, impl="cuda")
+        return torch.autograd.grad(y, ins, torch.empty_like(y))
+
+    x = meta(4, 4096, 8192, dtype=torch.bfloat16)
+    bc = meta(4, 4096, 16, dtype=torch.bfloat16)
+    c = roofline.analyze_step(fwd_bwd, x, x, meta(8192, 16), bc, bc,
+                              meta(8192))
+    fwd = roofline.scan_cost(4, 4096, 8192, 16, 2)
+    bwd = roofline.scan_bwd_cost(4, 4096, 8192, 16, 2)
+    assert c.by_kernel == {"selective_scan": fwd, "selective_scan_bwd": bwd}
+    assert bwd[1] == 2 * (5 * 4 * 4096 * 8192 + 4 * 4 * 4096 * 16) \
+        + 8 * (8192 * 16 + 8192)
+    ms, by = roofline.scan_bwd_bound(4, 4096, 8192, 16, 2)
+    assert by == "operations" and round(ms, 6) == 0.513536
+    assert ms == roofline.scan_bound(4, 4096, 8192, 16, 2)[0]
+
+
+@pytest.mark.parametrize("shape", [(4, 4096, 8192, 16), (2, 100, 66, 5)])
+def test_scan_bwd_op_counts_its_scratch(shape):
+    """The scan backward's scratch (``scan_bwd_work_bytes``), which its CUDA
+    body takes and frees inside the op, is in the memory account: the
+    count's peak over one backward launch on ``meta`` is the seven
+    gradients and the scratch, the outputs alone after it."""
+    from repro_torch.kernels.mamba_scan import (scan_bwd_work_bytes,
+                                                selective_scan_bwd_cuda)
+
+    b, s, di, n = shape
+    x = meta(b, s, di, dtype=torch.bfloat16)
+    bc = meta(b, s, n, dtype=torch.bfloat16)
+    A, D, h0 = meta(di, n), meta(di), meta(b, di, n)
+    c = roofline.analyze_step(
+        lambda *a: selective_scan_bwd_cuda(*a, None), x, x, A, bc, bc, D, h0,
+        x)
+    grads = 2 * (2 * b * s * di + 2 * b * s * n) + 4 * (
+        di * n + di + b * di * n)
+    assert c.peak_bytes == grads + scan_bwd_work_bytes(b, s, di, n)
+    assert c.output_bytes == grads
+
+
 def test_full_width_decode_cell_allocates_nothing_of_its_size():
     """qwen2.5-14b's decode_32k cell at full width on one device (~59 GB of
     bf16 parameters and cache) is counted on ``meta`` without growing the
